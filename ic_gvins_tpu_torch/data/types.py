@@ -1,0 +1,43 @@
+"""Core data containers as NamedTuples of tensors (``data/types.py``).
+
+Every field keeps the JAX layout: a single state has trailing shapes, a
+batch adds leading axes to every field.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+
+class ImuSeq(NamedTuple):
+    """IMU increment series (dtheta = gyro increment, dvel = specific-force
+    increment over dt)."""
+
+    time: torch.Tensor  # [..., N] end-of-interval timestamps (s)
+    dt: torch.Tensor  # [..., N] interval lengths (s)
+    dtheta: torch.Tensor  # [..., N, 3] rad
+    dvel: torch.Tensor  # [..., N, 3] m/s
+
+
+class NavState(NamedTuple):
+    """Navigation state in the local n-frame; q is the body->nav unit
+    quaternion, scalar-first."""
+
+    time: torch.Tensor  # [...]
+    p: torch.Tensor  # [..., 3]
+    q: torch.Tensor  # [..., 4]
+    v: torch.Tensor  # [..., 3]
+    bg: torch.Tensor  # [..., 3] gyro bias (rad/s)
+    ba: torch.Tensor  # [..., 3] accel bias (m/s^2)
+
+
+class IntegrationParams(NamedTuple):
+    """IMU noise model + environment."""
+
+    gyr_arw: torch.Tensor  # rad/sqrt(s)
+    acc_vrw: torch.Tensor  # m/s/sqrt(s)
+    gyr_bias_std: torch.Tensor  # rad/s
+    acc_bias_std: torch.Tensor  # m/s^2
+    corr_time: torch.Tensor  # s
+    gravity: torch.Tensor  # (3,) n-frame gravity vector
+    iewn: torch.Tensor  # (3,) earth rotation rate in n-frame (zeros if off)

@@ -1,0 +1,285 @@
+"""IMU preintegration with Earth-rotation compensation (``ins/preintegration.py``).
+
+One code path covers the NORMAL and EARTH variants: every Earth term
+vanishes when ``iewn == 0``. Every function batches over leading axes, so
+all intervals of a window integrate together: the loop runs over the IMU
+samples, the tensor ops over the intervals.
+
+Error-state ordering (15): [dp 0:3, dv 3:6, dtheta 6:9, dbg 9:12, dba 12:15],
+noise ordering (12): [gyro white, accel white, gyro bias RW, accel bias RW].
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from ..common import rotation as rot
+from ..common.rotation import mv
+from ..data.types import ImuSeq, IntegrationParams, NavState
+from .mechanization import compensate_bias, coning_sculling
+
+
+class PreintData(NamedTuple):
+    """Preintegrated measurement over one window interval (leading axes
+    batch the intervals)."""
+
+    dp: torch.Tensor  # (..., 3) delta position in the b0 frame
+    dv: torch.Tensor  # (..., 3) delta velocity
+    dq: torch.Tensor  # (..., 4) delta attitude quaternion
+    jac: torch.Tensor  # (..., 15, 15) d(delta)/d(error state at start)
+    cov: torch.Tensor  # (..., 15, 15) preintegration covariance
+    dt: torch.Tensor  # (...) total integration time
+    sum_dt_pn: torch.Tensor  # (..., 3) sum of dt_i * p_i (Earth Coriolis)
+    bg_ref: torch.Tensor  # (..., 3) gyro bias at linearization
+    ba_ref: torch.Tensor  # (..., 3) accel bias at linearization
+    end_state: NavState  # continuous-state replay at interval end
+
+
+def _eye(n, like):
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def noise_psd(params: IntegrationParams, dtype=None) -> torch.Tensor:
+    """12x12 diagonal noise PSD."""
+    nbg = 2.0 * params.gyr_bias_std**2 / params.corr_time
+    nba = 2.0 * params.acc_bias_std**2 / params.corr_time
+    d = torch.stack(
+        [params.gyr_arw**2, params.acc_vrw**2, nbg, nba]
+    ).repeat_interleave(3)
+    return torch.diag(d.to(dtype) if dtype is not None else d)
+
+
+def preintegrate(
+    params: IntegrationParams, state0: NavState, imu: ImuSeq
+) -> PreintData:
+    """Integrate IMU increments from ``state0``.
+
+    ``imu`` starts with the sample *at* the interval start (only the
+    coning predecessor); the rest advance the integration. Zero-padded
+    samples (dt = dtheta = dvel = 0) are no-ops. ``state0`` fields carry
+    the same leading axes as ``imu.dt[..., 0]``.
+
+    The Jacobian and covariance follow the sequential recursions
+    J <- Phi J and P <- Phi P Phi^T + Q; the JAX package composes the same
+    per-step (Phi, Q) pairs in a log-depth tree, which only reorders the
+    products.
+    """
+    p0 = state0.p
+    dtype, dev = p0.dtype, p0.device
+    batch = p0.shape[:-1]
+    noise = noise_psd(params, dtype)
+    eye3 = _eye(3, p0)
+    q0 = state0.q
+    q0_inv = rot.quat_inv(q0)
+    iewn = params.iewn.to(dtype)
+    gravity = params.gravity.to(dtype)
+    corr_time = params.corr_time.to(dtype)
+
+    gt = torch.zeros(batch + (15, 12), dtype=dtype, device=dev)
+    gt[..., 6:9, 0:3] = -eye3
+    gt[..., 9:12, 6:9] = eye3
+    gt[..., 12:15, 9:12] = eye3
+
+    p, v, q = state0.p, state0.v, state0.q
+    dp = torch.zeros(batch + (3,), dtype=dtype, device=dev)
+    dv = torch.zeros_like(dp)
+    dq = torch.zeros(batch + (4,), dtype=dtype, device=dev)
+    dq[..., 0] = 1.0
+    sum_dt_pn = torch.zeros_like(dp)
+    t_acc = torch.zeros(batch, dtype=dtype, device=dev)
+    J = torch.eye(15, dtype=dtype, device=dev).expand(batch + (15, 15))
+    P = torch.zeros(batch + (15, 15), dtype=dtype, device=dev)
+    prev = compensate_bias(
+        imu.dtheta[..., 0, :], imu.dvel[..., 0, :], imu.dt[..., 0],
+        state0.bg, state0.ba,
+    )
+
+    for k in range(1, imu.dt.shape[-1]):
+        dt = imu.dt[..., k]
+        dt1 = dt[..., None]
+        dth_cur, dv_cur = compensate_bias(
+            imu.dtheta[..., k, :], imu.dvel[..., k, :], dt, state0.bg, state0.ba
+        )
+        dvfb, dtheta = coning_sculling(prev[0], prev[1], dth_cur, dv_cur)
+        t_new = t_acc + dt
+
+        # continuous absolute state
+        dv_cor_g = (gravity - 2.0 * rot.cross(iewn.expand_as(v), v)) * dt1
+        qnn = rot.rotvec_to_quat(-iewn * dt1)
+        body_dv = rot.quat_rotate(q, dvfb)
+        dvel_abs = 0.5 * (body_dv + rot.quat_rotate(qnn, body_dv)) + dv_cor_g
+        p_new = p + dt1 * v + 0.5 * dt1 * dvel_abs
+        v = v + dvel_abs
+        q = rot.quat_normalize(
+            rot.quat_mul(qnn, rot.quat_mul(q, rot.rotvec_to_quat(dtheta)))
+        )
+        p = p_new
+        sum_dt_pn = sum_dt_pn + dt1 * p_new
+
+        # delta (preintegrated) state, mid-interval Earth compensation
+        qmid = rot.rotvec_to_quat(-iewn * (t_new - 0.5 * dt)[..., None])
+        q_comp = rot.quat_mul(q0_inv, rot.quat_mul(qmid, rot.quat_mul(q0, dq)))
+        dvel_d = rot.quat_rotate(q_comp, dvfb)
+        dp = dp + dt1 * dv + 0.5 * dt1 * dvel_d
+        dv = dv + dvel_d
+        dq = rot.quat_normalize(rot.quat_mul(dq, rot.rotvec_to_quat(dtheta)))
+
+        # transition + noise of this step
+        qend = rot.rotvec_to_quat(-iewn * t_new[..., None])
+        cbb0 = -rot.quat_to_matrix(
+            rot.quat_mul(q0_inv, rot.quat_mul(qend, rot.quat_mul(q0, dq)))
+        )
+        dt2 = dt[..., None, None]
+        decay = eye3 * (1.0 - dt2 / corr_time)
+        phi = torch.zeros(batch + (15, 15), dtype=dtype, device=dev)
+        phi[..., 0:3, 0:3] = eye3
+        phi[..., 0:3, 3:6] = eye3 * dt2
+        phi[..., 3:6, 3:6] = eye3
+        phi[..., 3:6, 6:9] = cbb0 @ rot.skew(dv_cur)
+        phi[..., 3:6, 12:15] = cbb0 * dt2
+        phi[..., 6:9, 6:9] = eye3 - rot.skew(dth_cur)
+        phi[..., 6:9, 9:12] = -eye3 * dt2
+        phi[..., 9:12, 9:12] = decay
+        phi[..., 12:15, 12:15] = decay
+        gt[..., 3:6, 3:6] = cbb0
+        gng = gt @ noise @ gt.transpose(-1, -2)
+        qk = 0.5 * dt2 * (phi @ gng + gng @ phi.transpose(-1, -2))
+
+        J = phi @ J
+        P = phi @ P @ phi.transpose(-1, -2) + qk
+        t_acc = t_new
+        prev = (dth_cur, dv_cur)
+
+    end_state = NavState(
+        time=state0.time + t_acc, p=p, q=q, v=v, bg=state0.bg, ba=state0.ba
+    )
+    return PreintData(
+        dp=dp, dv=dv, dq=dq, jac=J, cov=P, dt=t_acc, sum_dt_pn=sum_dt_pn,
+        bg_ref=state0.bg, ba_ref=state0.ba, end_state=end_state,
+    )
+
+
+def sqrt_information(cov: torch.Tensor) -> torch.Tensor:
+    """Upper-triangular sqrt information chol(cov^-1)^T, computed on the
+    diagonally normalized correlation matrix (cov = D Cn D):
+    chol(cov^-1)^T = chol(Cn^-1)^T D^-1."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1), min=1e-30))
+    s = 1.0 / d
+    cov_n = cov * s[..., :, None] * s[..., None, :]
+    info_n = torch.linalg.inv(cov_n)
+    info_n = 0.5 * (info_n + info_n.transpose(-1, -2))
+    u_n = torch.linalg.cholesky(info_n).transpose(-1, -2)
+    return u_n * s[..., None, :]
+
+
+def _corrected_terms(preint: PreintData, state0: NavState, state1: NavState,
+                     params: IntegrationParams):
+    """Bias-corrected deltas and the n-frame residual pieces shared by
+    the residual and its Jacobian."""
+    dtype = state0.p.dtype
+    iewn = params.iewn.to(dtype)
+    gravity = params.gravity.to(dtype)
+    W = rot.skew(iewn)
+    T = preint.dt[..., None]
+
+    dbg = state0.bg - preint.bg_ref
+    dba = state0.ba - preint.ba_ref
+    jac = preint.jac
+    corrected_p = preint.dp + mv(jac[..., 0:3, 9:12], dbg) + mv(jac[..., 0:3, 12:15], dba)
+    corrected_v = preint.dv + mv(jac[..., 3:6, 9:12], dbg) + mv(jac[..., 3:6, 12:15], dba)
+    phi_bg = mv(jac[..., 6:9, 9:12], dbg)
+    corrected_q = rot.quat_mul(preint.dq, rot.rotvec_to_quat(phi_bg))
+
+    p_cor = 2.0 * mv(W, preint.sum_dt_pn - T * state0.p)
+    v_cor = 2.0 * mv(W, state1.p - state0.p)
+    qnn = rot.rotvec_to_quat(-iewn * T)
+
+    dpn = state1.p - state0.p - state0.v * T - 0.5 * gravity * T * T + p_cor
+    dvn = state1.v - state0.v - gravity * T + v_cor
+    C0 = rot.quat_to_matrix(rot.quat_inv(state0.q))
+    A = rot.quat_mul(rot.quat_inv(state1.q), rot.quat_mul(qnn, state0.q))
+    M = rot.quat_mul(A, corrected_q)
+    r = torch.cat(
+        [
+            mv(C0, dpn) - corrected_p,
+            mv(C0, dvn) - corrected_v,
+            2.0 * M[..., 1:],
+            state1.bg - state0.bg,
+            state1.ba - state0.ba,
+        ],
+        -1,
+    )
+    return r, W, C0, dpn, dvn, A, M, corrected_q, phi_bg
+
+
+def preint_residual(
+    preint: PreintData,
+    state0: NavState,
+    state1: NavState,
+    params: IntegrationParams,
+    whiten: bool = True,
+) -> torch.Tensor:
+    """15-dim preintegration residual; ``whiten`` multiplies by the
+    sqrt-information of the propagated covariance."""
+    r = _corrected_terms(preint, state0, state1, params)[0]
+    if whiten:
+        r = mv(sqrt_information(preint.cov), r)
+    return r
+
+
+def _so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """SO(3) right Jacobian Jr(phi): exp(phi + d) = exp(phi) exp(Jr d)."""
+    th2 = torch.sum(phi * phi, -1)[..., None, None]
+    th = torch.sqrt(torch.clamp(th2, min=1e-30))
+    K = rot.skew(phi)
+    small = th2 < 1e-12
+    a = torch.where(small, 0.5, (1.0 - torch.cos(th)) / torch.clamp(th2, min=1e-30))
+    b = torch.where(
+        small, 1.0 / 6.0, (th - torch.sin(th)) / torch.clamp(th2 * th, min=1e-30)
+    )
+    return _eye(3, phi) - a * K + b * (K @ K)
+
+
+def preint_residual_jac(
+    preint: PreintData,
+    state0: NavState,
+    state1: NavState,
+    params: IntegrationParams,
+):
+    """Unwhitened residual + analytic 15x30 Jacobian w.r.t. the boxplus
+    deltas [node0 (dp,dtheta,dv,dbg,dba) | node1 (...)]."""
+    r, W, C0, dpn, dvn, A, M, corrected_q, phi_bg = _corrected_terms(
+        preint, state0, state1, params
+    )
+    T = preint.dt[..., None, None]
+    eye3 = _eye(3, r)
+    jac = preint.jac
+    CW = C0 @ W
+
+    LA_RB = (rot.quat_left(A) @ rot.quat_right(corrected_q))[..., 1:, 1:]
+    LM = rot.quat_left(M)[..., 1:, 1:]
+    RM = rot.quat_right(M)[..., 1:, 1:]
+    Jr = _so3_right_jacobian(phi_bg)
+
+    J = torch.zeros(r.shape[:-1] + (15, 30), dtype=r.dtype, device=r.device)
+    J[..., 0:3, 0:3] = -C0 - 2.0 * T * CW
+    J[..., 0:3, 3:6] = rot.skew(mv(C0, dpn))
+    J[..., 0:3, 6:9] = -T * C0
+    J[..., 0:3, 9:12] = -jac[..., 0:3, 9:12]
+    J[..., 0:3, 12:15] = -jac[..., 0:3, 12:15]
+    J[..., 0:3, 15:18] = C0
+    J[..., 3:6, 0:3] = -2.0 * CW
+    J[..., 3:6, 3:6] = rot.skew(mv(C0, dvn))
+    J[..., 3:6, 6:9] = -C0
+    J[..., 3:6, 9:12] = -jac[..., 3:6, 9:12]
+    J[..., 3:6, 12:15] = -jac[..., 3:6, 12:15]
+    J[..., 3:6, 15:18] = 2.0 * CW
+    J[..., 3:6, 21:24] = C0
+    J[..., 6:9, 3:6] = LA_RB
+    J[..., 6:9, 9:12] = LM @ Jr @ jac[..., 6:9, 9:12]
+    J[..., 6:9, 18:21] = -RM
+    J[..., 9:12, 9:12] = -eye3
+    J[..., 9:12, 24:27] = eye3
+    J[..., 12:15, 12:15] = -eye3
+    J[..., 12:15, 27:30] = eye3
+    return r, J

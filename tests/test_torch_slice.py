@@ -1,0 +1,188 @@
+"""PyTorch port, the slice as a whole: the front end over a few frames and
+one GVINS keyframe round (preintegrate -> triangulate -> optimize_impl ->
+marginalize_and_slide), each against the JAX package; the committed
+24-node x 192-landmark fixture that chip_smoke.py uses; and the rule that
+the port never imports jax."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_solver import CLOSED, ITERATIVE, assert_rel
+from test_vision import random_texture, shift_image
+
+from __graft_entry__ import _tiny_problem
+from ic_gvins_tpu.engine.frontend import Frontend as JFrontend
+from ic_gvins_tpu.vision.camera import Camera as JCamera
+from ic_gvins_tpu_torch.convert import to_numpy, to_torch
+from ic_gvins_tpu_torch.data.types import ImuSeq, IntegrationParams
+from ic_gvins_tpu_torch.engine.frontend import Frontend
+from ic_gvins_tpu_torch.engine.keyframe import preintegrate_window, triangulate_window
+from ic_gvins_tpu_torch.factors.marginalization import marginalize_and_slide
+from ic_gvins_tpu_torch.solver.lm import optimize_impl
+from ic_gvins_tpu_torch.solver.window import Prior, SolverConfig, Window
+from ic_gvins_tpu_torch.vision.camera import Camera
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
+import chip_smoke  # noqa: E402
+import make_torch_fixture  # noqa: E402
+
+INTR, DIST, RES = (200.0, 201.0, 80.0, 60.0), (-0.05, 0.02, 1e-4, 2e-4), (160, 120)
+
+
+def _landmarks_ahead(fe):
+    """lm_lookup for the full-pose seed: even ids get a world point 5 m
+    along the bearing of the feature's last normalized observation."""
+    def lookup(ids):
+        pw = np.concatenate([fe.uv_norm, np.ones((len(ids), 1))], 1) * 5.0
+        return pw, ids % 2 == 0
+    return lookup
+
+
+@pytest.mark.parametrize("scenario", ["drift", "seeded", "lost"])
+def test_frontend_matches_jax(scenario):
+    """Four 160x120 frames drifting by a subpixel flow, 32 features, 32 px
+    cells. "seeded" turns the camera by 1 mrad a frame (rotation seeds)
+    and maps even ids to landmarks (full-pose seeds); in "lost" the third
+    frame is black, so tracking is lost and the front end resets and
+    detects anew. Ids and the lost flag must be equal; uv (normalized)
+    agree to 1e-6, i.e. ~2e-4 px at this focal length, the size of the
+    float32 rounding of the subpixel window sums; velocities to 1e-5 (uv
+    over a 0.1 s step)."""
+    jf = JFrontend(JCamera.create(INTR, DIST, RES), max_features=32, cell=32,
+                   use_pallas=False, use_clahe=False, fm_ransac=False)
+    tf = Frontend(Camera.create(INTR, DIST, RES), max_features=32, cell=32)
+    base = random_texture(120, 160, seed=3)
+    seeded = scenario == "seeded"
+    lost = []
+    for k in range(4):
+        img = np.array(shift_image(base, 1.1 * k, -0.6 * k), np.float32)
+        if scenario == "lost" and k == 2:
+            img = np.zeros_like(img)
+        yaw = 1e-3 * k if seeded else 0.0
+        q = np.array([np.cos(yaw / 2), 0.0, np.sin(yaw / 2), 0.0])
+        j_ids, j_uv, j_vel = jf.process(0.1 * k, img, q_wc=q, p_wc=np.zeros(3),
+                                        lm_lookup=_landmarks_ahead(jf) if seeded else None)
+        t_ids, t_uv, t_vel = tf.process(0.1 * k, img, q_wc=q, p_wc=np.zeros(3),
+                                        lm_lookup=_landmarks_ahead(tf) if seeded else None)
+        np.testing.assert_array_equal(t_ids, j_ids)
+        np.testing.assert_allclose(t_uv, j_uv, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(t_vel, j_vel, rtol=0, atol=1e-5)
+        assert tf.track_lost == jf.track_lost
+        lost.append(tf.track_lost)
+    assert len(t_ids) >= 12
+    assert tf.next_id == jf.next_id
+    assert any(lost) == (scenario == "lost")
+
+
+@pytest.mark.parametrize("flag", ["use_clahe", "fm_ransac", "check_histogram"])
+def test_frontend_refuses_unported_stages(flag):
+    with pytest.raises(NotImplementedError):
+        Frontend(Camera.create(INTR, DIST, RES), **{flag: True})
+
+
+def _port_round(win, prior, cfg, params, imu, iters):
+    w = preintegrate_window(win, params, imu)
+    w, invd, ok = triangulate_window(w)
+    w_opt, stats = optimize_impl(w, prior, cfg, params, iters=iters)
+    w_sl, pr = marginalize_and_slide(w_opt, prior, cfg, params)
+    return w, invd, ok, w_opt, stats, w_sl, pr
+
+
+@pytest.fixture(scope="module")
+def rounds():
+    win, prior, cfg, params = _tiny_problem()
+    imu = make_torch_fixture.raw_imu(win.n_nodes - 1, params)
+    want = make_torch_fixture.jax_keyframe_round(win, prior, cfg, params, imu, iters=20)
+    got = _port_round(
+        to_torch(Window, to_numpy(win)), to_torch(Prior, to_numpy(prior)),
+        to_torch(SolverConfig, to_numpy(cfg)), to_torch(IntegrationParams, to_numpy(params)),
+        to_torch(ImuSeq, to_numpy(imu)), 20)
+    return want, got
+
+
+@pytest.mark.parametrize("stage", ["preintegrate", "triangulate", "optimize", "marginalize"])
+def test_keyframe_round_matches_jax(rounds, stage):
+    """One round on _tiny_problem (6 nodes x 16 landmarks, float64)."""
+    want, (w, invd, ok, w_opt, (s1, s2, nc), w_sl, pr) = rounds
+    if stage == "preintegrate":
+        for k in ("dp", "dv", "dq", "jac", "cov", "dt", "sum_dt_pn"):
+            assert_rel(getattr(w.preint, k), getattr(want["preint"], k), CLOSED, k)
+    elif stage == "triangulate":
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(want["tri_ok"]))
+        m = np.asarray(want["tri_ok"])
+        assert m.any()
+        assert_rel(invd.numpy()[m], np.asarray(want["tri_invdepth"])[m], CLOSED, "invdepth")
+    elif stage == "optimize":
+        for ts, js in ((s1, want["stats1"]), (s2, want["stats2"])):
+            assert (ts.iters_run, ts.accepted) == (int(js.iters_run), int(js.accepted))
+            assert_rel(ts.cost1, js.cost1, ITERATIVE, "cost")
+        assert int(nc) == int(want["n_culled"])
+        for k in ("p", "q", "v", "bg", "ba"):
+            assert_rel(getattr(w_opt.nodes, k), getattr(want["opt_window"].nodes, k),
+                       ITERATIVE, k)
+        assert_rel(w_opt.lm_invdepth, want["opt_window"].lm_invdepth, ITERATIVE, "invdepth")
+    else:
+        assert_rel(pr.H, want["prior"].H, ITERATIVE, "H")
+        assert_rel(pr.g, want["prior"].g, ITERATIVE, "g")
+        for k in ("p", "q", "v"):
+            assert_rel(getattr(w_sl.nodes, k), getattr(want["slid_window"].nodes, k),
+                       ITERATIVE, k)
+        np.testing.assert_array_equal(w_sl.lm_valid.numpy(),
+                                      np.asarray(want["slid_window"].lm_valid))
+
+
+def test_committed_fixture_round_on_cpu():
+    """The 24 x 192 round of chip_smoke.py phase 4, here on the CPU against
+    the fixture's stored JAX numbers (tools/make_torch_fixture.py)."""
+    inputs, ref = chip_smoke.round_inputs(torch.device("cpu"))
+    assert (inputs[0].n_nodes, inputs[0].n_landmarks) == (24, 192)
+    w, invd, ok, w_opt, (s1, s2, nc), w_sl, pr = _port_round(*inputs, chip_smoke.ITERS)
+    for k, v in ref["preint"].items():
+        assert_rel(getattr(w.preint, k), v, CLOSED, k)
+    np.testing.assert_array_equal(ok.numpy(), ref["tri"]["ok"])
+    assert (s1.iters_run, s2.iters_run) == (int(ref["opt"]["stats1"]["iters_run"]),
+                                            int(ref["opt"]["stats2"]["iters_run"]))
+    for k, v in ref["opt"]["nodes"].items():
+        assert_rel(getattr(w_opt.nodes, k), v, ITERATIVE, k)
+    assert_rel(pr.H, ref["marg"]["H"], ITERATIVE, "H")
+    assert_rel(pr.g, ref["marg"]["g"], ITERATIVE, "g")
+
+
+def test_port_imports_no_jax():
+    """Importing the port pulls in neither jax nor the JAX package, and
+    leaves TF32 off for matmuls and convolutions."""
+    code = (
+        "import sys, torch\n"
+        "import ic_gvins_tpu_torch, ic_gvins_tpu_torch.engine.frontend, "
+        "ic_gvins_tpu_torch.engine.keyframe, ic_gvins_tpu_torch.solver.lm, "
+        "ic_gvins_tpu_torch.factors.marginalization, ic_gvins_tpu_torch.convert, "
+        "ic_gvins_tpu_torch.vision.klt_cuda\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ic_gvins_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cpu_tensors_never_reach_cuda(monkeypatch):
+    """On the CPU the KLT wrapper must not even load the kernel library."""
+    from ic_gvins_tpu_torch.vision import klt_cuda
+
+    def boom():
+        raise AssertionError("kernel library loaded for CPU tensors")
+
+    monkeypatch.setattr(klt_cuda, "load_library", boom)
+    tf = Frontend(Camera.create(INTR, DIST, RES), max_features=16, cell=32)
+    base = random_texture(120, 160, seed=5)
+    for k in range(2):
+        tf.process(0.1 * k, np.array(shift_image(base, 0.5 * k, 0.0), np.float32))
+    assert tf.valid.sum() > 0

@@ -1,0 +1,141 @@
+#!/usr/bin/env python
+"""Write the keyframe-round fixture that ``chip_smoke.py`` holds the
+PyTorch port against: the JAX package's float64 results on the CPU.
+
+The window is ``__graft_entry__._tiny_problem(n_nodes=24, n_landmarks=192)``
+(the engine's 24-node x 192-landmark window), with the raw IMU of every
+interval rebuilt as ``_tiny_problem`` simulates it. The round is
+preintegrate (23 intervals) -> triangulate (anchor node vs newest
+observing node) -> ``optimize_impl(iters=20)`` -> ``marginalize_and_slide``.
+
+    python tools/make_torch_fixture.py [--out tests/fixtures/torch_slice_24x192.npz]
+"""
+
+import argparse
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+DEFAULT_OUT = os.path.join(ROOT, "tests", "fixtures", "torch_slice_24x192.npz")
+N_NODES, N_LANDMARKS, ITERS = 24, 192, 20
+# _tiny_problem's node times: t0 + i * node_dt, IMU at 200 Hz
+T0, NODE_DT, IMU_RATE = 5.0, 0.4, 200.0
+
+
+def _jax():
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    return jax
+
+
+def raw_imu(n_intervals, params):
+    """[n_intervals, n] stacked IMU of the window's intervals."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from ic_gvins_tpu.data import simulator as sim
+
+    traj = sim.car_trajectory()
+    imus = [sim.simulate_imu(traj, params, T0 + i * NODE_DT, NODE_DT, IMU_RATE)
+            for i in range(n_intervals)]
+    return jax.tree.map(lambda *xs: jnp.stack(xs), *imus)
+
+
+def jax_keyframe_round(win, prior, cfg, params, imu, iters=ITERS):
+    """The round in the JAX package; returns a dict of its stage outputs."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from ic_gvins_tpu.common import rotation as rot
+    from ic_gvins_tpu.factors.marginalization import marginalize_and_slide
+    from ic_gvins_tpu.ins.preintegration import preintegrate
+    from ic_gvins_tpu.solver.lm import optimize_impl
+    from ic_gvins_tpu.vision.triangulation import triangulate_checked
+
+    N, L = win.n_nodes, win.n_landmarks
+    state0 = jax.tree.map(lambda x: x[: N - 1], win.nodes)
+    pre = jax.jit(jax.vmap(preintegrate, in_axes=(None, 0, 0)))(params, state0, imu)
+    win = win._replace(preint=pre)
+
+    ref = win.lm_ref
+    last = jnp.clip(jnp.max(jnp.where(win.obs_valid, jnp.arange(N), -1), 1), 0)
+
+    def cam_pose(k):
+        q = win.nodes.q[k]
+        return (rot.quat_to_matrix(rot.quat_mul(q, win.ext_q)),
+                win.nodes.p[k] + rot.quat_rotate(q, win.ext_p))
+
+    r0, t0 = cam_pose(ref)
+    r1, t1 = cam_pose(last)
+    lidx = jnp.arange(L)
+    _, invd, ok = triangulate_checked(r0, t0, r1, t1, win.obs_uv[lidx, ref],
+                                      win.obs_uv[lidx, last])
+    ok = ok & win.lm_valid & (last != ref)
+    win = win._replace(lm_invdepth=jnp.where(ok, invd, win.lm_invdepth))
+    tri_win = win
+
+    opt = jax.jit(lambda w, p, c, pa: optimize_impl(w, p, c, pa, iters=iters))
+    win_opt, (s1, s2, n_culled) = opt(win, prior, cfg, params)
+    marg = jax.jit(marginalize_and_slide)
+    win_slid, prior_new = marg(win_opt, prior, cfg, params)
+    return {
+        "preint": pre, "tri_invdepth": invd, "tri_ok": ok, "tri_window": tri_win,
+        "opt_window": win_opt, "stats1": s1, "stats2": s2, "n_culled": n_culled,
+        "slid_window": win_slid, "prior": prior_new,
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    args = ap.parse_args()
+    _jax()
+    import numpy as np
+
+    from __graft_entry__ import _tiny_problem
+    from ic_gvins_tpu_torch.convert import flatten, to_numpy
+
+    win, prior, cfg, params = _tiny_problem(n_nodes=N_NODES, n_landmarks=N_LANDMARKS)
+    imu = raw_imu(N_NODES - 1, params)
+    out = jax_keyframe_round(win, prior, cfg, params, imu)
+    pre = out["preint"]
+    tree = {
+        "in": {"window": to_numpy(win), "prior": to_numpy(prior),
+               "cfg": to_numpy(cfg), "params": to_numpy(params),
+               "imu": to_numpy(imu)},
+        "out": {
+            "preint": {k: np.asarray(getattr(pre, k)) for k in
+                       ("dp", "dv", "dq", "jac", "cov", "dt", "sum_dt_pn")},
+            "tri": {"invdepth": np.asarray(out["tri_invdepth"]),
+                    "ok": np.asarray(out["tri_ok"])},
+            "opt": {"nodes": to_numpy(out["opt_window"].nodes),
+                    "lm_invdepth": np.asarray(out["opt_window"].lm_invdepth),
+                    "gnss_std": np.asarray(out["opt_window"].gnss_std),
+                    "obs_valid": np.asarray(out["opt_window"].obs_valid),
+                    "stats1": to_numpy(out["stats1"]),
+                    "stats2": to_numpy(out["stats2"]),
+                    "n_culled": np.asarray(out["n_culled"])},
+            "marg": {"H": np.asarray(out["prior"].H),
+                     "g": np.asarray(out["prior"].g),
+                     "nodes": to_numpy(out["slid_window"].nodes),
+                     "lm_valid": np.asarray(out["slid_window"].lm_valid),
+                     "lm_ref": np.asarray(out["slid_window"].lm_ref)},
+        },
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    np.savez_compressed(args.out, **flatten(tree))
+    s1, s2 = out["stats1"], out["stats2"]
+    print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes); "
+          f"phase1 iters {int(s1.iters_run)} accepted {int(s1.accepted)}, "
+          f"phase2 iters {int(s2.iters_run)} accepted {int(s2.accepted)}, "
+          f"cost {float(s1.cost0):.6g} -> {float(s2.cost1):.6g}, "
+          f"triangulated {int(np.sum(np.asarray(out['tri_ok'])))}")
+
+
+if __name__ == "__main__":
+    main()
