@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 Drives the port's main path at the engine's default sizes: the visual
-front end (``Frontend.process``) over 1278 x 1022 frames with 200
-features and a 4-image pyramid, then one GVINS keyframe round on a
-24-node x 192-landmark float64 window (preintegrate -> triangulate ->
-``optimize_impl(iters=20)`` -> ``marginalize_and_slide``). Phases:
+front end (``Frontend.process`` with its defaults: CLAHE, bidirectional
+KLT, FM-RANSAC) over 1278 x 1022 frames with 200 features and a 4-image
+pyramid, then one GVINS keyframe round on a 24-node x 192-landmark float64
+window (preintegrate -> triangulate -> ``optimize_impl(iters=20)`` ->
+``marginalize_and_slide``). Phases:
 
 1. the card's name and power limit; build the CUDA kernel (nvcc, sm_90a);
-2. KLT kernel vs its plain PyTorch version at slice shapes, with times;
-3. ``Frontend.process`` over 8 frames shifted by a known subpixel flow;
+2. KLT kernel vs its plain PyTorch version at slice shapes (200 features)
+   and at 1000 and 4000 features, with times and the roofline bound of the
+   work the kernel counted; then CLAHE on the card vs the CPU and FM-RANSAC
+   on a synthetic two-view scene with 20% gross outliers;
+3. ``Frontend.process`` over 8 frames shifted by a known subpixel flow, and
+   the histogram gate on a frame at a quarter of the brightness;
 4. the keyframe round, held against the JAX package's float64 results in
    ``tests/fixtures/torch_slice_24x192.npz`` (``tools/make_torch_fixture.py``).
 
@@ -33,6 +38,7 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_slice_24x192.npz")
 
 IMG_W, IMG_H = 1278, 1022  # engine default camera
 N_FEATURES = 200
+KLT_SIZES = (N_FEATURES, 1000, 4000)  # features per call in phase 2
 PYR_LEVELS = 3  # -> 4 pyramid images
 CELL = 64
 FLOW = (1.3, -0.7)  # known per-frame shift (x, y) in px
@@ -47,6 +53,24 @@ KLT_PTS_ATOL = 0.05  # px, both ok
 KLT_OK_AGREE = 0.99  # fraction of equal ok flags
 FLOW_ATOL = 0.1  # px, median error of the recovered shift
 TRACKED_MIN = 0.8  # fraction of features kept frame to frame
+# CLAHE on the card vs the CPU: same integer histograms, float32 sums in
+# another order (a few roundings of values up to 255).
+CLAHE_ATOL = 1e-2  # grey levels
+RANSAC_KEEP = 0.95  # fraction of the true inliers FM-RANSAC must keep
+# Roofline of one H100 SXM (NVIDIA's data sheet): HBM3 and plain float32.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+# Work of the KLT per window pixel. All 441 pixels of a window share one
+# point's four bilinear weights, so a sample is 4 multiply-adds (8 flop). A
+# level pass builds the template: 5 samples, 4 flop of gradients, 6 of the
+# structure tensor. A Gauss-Newton step takes 1 sample, 1 subtraction and
+# 2 multiply-adds. The weights cost 8 flop once per pass and once per step.
+FLOP_WEIGHTS = 8
+FLOP_PER_PASS = 441 * (5 * 8 + 4 + 6) + FLOP_WEIGHTS
+FLOP_PER_STEP = 441 * (8 + 1 + 4) + FLOP_WEIGHTS
+# Pixels a level pass must read: the 25 x 25 template neighbourhood and the
+# 23 x 23 footprint of the search window, 4 bytes each.
+BYTES_PER_PASS = (25 * 25 + 23 * 23) * 4
 # Keyframe round vs JAX float64 on the CPU: closed forms agree to rounding
 # (relative 1e-9 of each array's largest entry); the 20 LM iterations and
 # the marginalization's eigen-decomposition amplify reduction-order
@@ -93,15 +117,40 @@ def cuda_ms(fn, reps, queue_ahead=False):
 
 
 def make_frames(n):
-    """Band-limited noise (smoothed uniform noise), shifted by k * FLOW."""
+    """Band-limited noise (smoothed uniform noise) with its contrast
+    stretched about mid-grey, shifted by k * FLOW and kept inside [0, 255]
+    (a standard deviation of ~40 grey levels, so CLAHE has something to
+    equalize and clips nothing but the tails)."""
     from scipy.ndimage import gaussian_filter, shift
 
     rng = np.random.RandomState(0)
-    base = gaussian_filter(rng.rand(IMG_H, IMG_W) * 255.0, 2.0) * 4.0
+    base = (gaussian_filter(rng.rand(IMG_H, IMG_W) * 255.0, 2.0) - 127.5) * 4.0 + 127.5
     return [
-        shift(base, (k * FLOW[1], k * FLOW[0]), order=3, mode="nearest").astype(np.float32)
+        np.clip(shift(base, (k * FLOW[1], k * FLOW[0]), order=3, mode="nearest"),
+                0.0, 255.0).astype(np.float32)
         for k in range(n)
     ]
+
+
+def two_view_scene(n, n_out, seed, noise=0.2):
+    """n pixel correspondences of random 3-D points seen by two cameras (a
+    1 m baseline and a 0.08 rad turn, f = 400 px, ``noise`` px of Gaussian
+    noise); the first ``n_out`` are gross outliers, moved in the second
+    view by 8-40 px in y, across the epipolar lines (the baseline is along
+    x, so they are within 0.2 of horizontal; a move along its line leaves
+    a point an inlier of the geometry), and by up to 20 px in x.
+    Returns (uv0 [n, 2], uv1 [n, 2], is_out [n])."""
+    rng = np.random.default_rng(seed)
+    pw = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(4, 12, n)], -1)
+    t, ang = np.array([1.0, 0.15, 0.1]), 0.08
+    rot = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
+    proj = lambda p: 400.0 * p[:, :2] / p[:, 2:] + np.array([320.0, 240.0])  # noqa: E731
+    uv0 = proj(pw) + rng.normal(0, noise, (n, 2))
+    uv1 = proj((pw - t) @ rot) + rng.normal(0, noise, (n, 2))
+    is_out = np.arange(n) < n_out
+    uv1[is_out, 0] += rng.uniform(-20, 20, n_out)
+    uv1[is_out, 1] += rng.uniform(8, 40, n_out) * rng.choice([-1, 1], n_out)
+    return uv0, uv1, is_out
 
 
 def phase_build():
@@ -120,6 +169,38 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
+def klt_bound(work, n, pyr):
+    """Roofline bound of one bidirectional KLT call from the work the
+    kernel counted (``work`` [n, 2]: packed level passes and Gauss-Newton
+    steps per feature): (ms, "bytes" or "operations"). Bytes: at each level
+    the pixels its passes must read, at most that level of both pyramids
+    once, plus the points in and the results out; operations: the float32
+    flop of the passes and steps."""
+    from ic_gvins_tpu_torch.vision.klt_cuda import passes_per_level
+
+    per_level = passes_per_level(work, len(pyr))
+    passes, steps = sum(per_level), int(work[:, 1].sum())
+    pixels = sum(min(p * BYTES_PER_PASS, 2 * x.numel() * 4) for p, x in zip(per_level, pyr))
+    nbytes = pixels + n * (8 + 8 + 1 + 8 + 4 + 1)
+    flop = passes * FLOP_PER_PASS + steps * FLOP_PER_STEP
+    t_bytes, t_flop = nbytes / PEAK_BYTES_S * 1e3, flop / PEAK_F32_FLOP_S * 1e3
+    log(f"phase 2 klt bound n={n}: level passes {per_level} (level 0 first), {steps} steps "
+        f"({steps / max(passes, 1):.2f} per pass); {nbytes / 1e6:.3f} MB -> {t_bytes:.5f} ms "
+        f"at 3.35 TB/s, {flop / 1e6:.1f} MFLOP -> {t_flop:.5f} ms at 67 TFLOP/s f32")
+    return max(t_bytes, t_flop), "bytes" if t_bytes >= t_flop else "operations"
+
+
+def klt_inputs(n, pyr0, pyr1):
+    """Phase 2's arguments of one bidirectional KLT call at n features:
+    seeded points at least 40 px inside the frame, each its own seed, all
+    valid."""
+    import torch
+
+    pts = np.random.RandomState(n).rand(n, 2) * np.array([IMG_W - 80, IMG_H - 80]) + 40
+    pts0 = torch.as_tensor(pts, dtype=torch.float32, device=pyr0[0].device)
+    return pyr0, pyr1, pts0, pts0, torch.ones(n, dtype=torch.bool, device=pts0.device)
+
+
 def phase_klt(frames, dev):
     import torch
 
@@ -128,49 +209,91 @@ def phase_klt(frames, dev):
 
     pyr0 = build_pyramid(torch.as_tensor(frames[0], device=dev), PYR_LEVELS)
     pyr1 = build_pyramid(torch.as_tensor(frames[1], device=dev), PYR_LEVELS)
-    rng = np.random.RandomState(1)
-    pts = rng.rand(N_FEATURES, 2) * np.array([IMG_W - 80, IMG_H - 80]) + 40
-    pts0 = torch.as_tensor(pts, dtype=torch.float32, device=dev)
-    valid = torch.ones(N_FEATURES, dtype=torch.bool, device=dev)
-    args = (pyr0, pyr1, pts0, pts0, valid)
+    stats = {}
+    for n in KLT_SIZES:
+        args = klt_inputs(n, pyr0, pyr1)
+        pts0 = args[2]
 
-    pk, ok_k, _ = klt_cuda.lk_track_bidirectional(*args)
-    pp, ok_p, _ = klt.lk_track_bidirectional(*args)
+        pk, ok_k, _, work = klt_cuda.lk_track_bidirectional_counted(*args)
+        pp, ok_p, _ = klt.lk_track_bidirectional(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(pk).all()), "KLT kernel returned non-finite points")
+        both = ok_k & ok_p
+        check(int(both.sum()) > 0, "no feature tracked by both kernel and plain version")
+        err = float((pk - pp).abs()[both].max())
+        agree = float((ok_k == ok_p).float().mean())
+        flow = (pk - pts0)[ok_k].cpu().numpy()
+        flow_err = float(np.median(np.linalg.norm(flow - np.array(FLOW), axis=1)))
+        frac = float(ok_k.float().mean())
+        log(f"phase 2 klt: {n} features, 4 levels of {IMG_W}x{IMG_H}: "
+            f"ok kernel {frac:.3f}, ok agreement {agree:.4f} (>= {KLT_OK_AGREE}), "
+            f"max |kernel - plain| {err:.3g} px (<= {KLT_PTS_ATOL}), "
+            f"median flow error {flow_err:.3g} px (<= {FLOW_ATOL})")
+        check(err <= KLT_PTS_ATOL, "KLT kernel disagrees with the plain version")
+        check(agree >= KLT_OK_AGREE, "KLT kernel ok flags disagree with the plain version")
+        check(flow_err <= FLOW_ATOL and frac >= 0.9, "KLT kernel missed the known flow")
+        bound_ms, bound_by = klt_bound(work, n, pyr0)
+
+        kernel = lambda: klt_cuda.lk_track_bidirectional(*args)  # noqa: E731
+        plain = lambda: klt.lk_track_bidirectional(*args)  # noqa: E731
+        for _ in range(3):
+            kernel()
+        # in turns: plain, kernel, kernel, plain (the plain version only at
+        # the slice's size). The kernel's time is the card's (calls queued
+        # behind a spin); the plain version syncs with the host every
+        # iteration, so its time is what a caller waits.
+        t_p = [cuda_ms(plain, 10)] if n == N_FEATURES else []
+        t_k = [cuda_ms(kernel, 50, queue_ahead=True) for _ in range(2)]
+        t_p += [cuda_ms(plain, 10)] if n == N_FEATURES else []
+        t_call = cuda_ms(kernel, 50)
+        ms_k = float(np.mean(t_k))
+        log(f"phase 2 klt time n={n}: kernel {ms_k:.4f} ms on the card ({t_k[0]:.4f}, "
+            f"{t_k[1]:.4f}), {t_call:.4f} ms per call back to back, bound {bound_ms:.5f} ms "
+            f"({bound_by})" + (f"; plain {np.mean(t_p):.4f} ms ({t_p[0]:.4f}, {t_p[1]:.4f})"
+                               if t_p else "") + " per bidirectional call")
+        if n == N_FEATURES:
+            stats.update(max_abs_err=err, ms=ms_k, plain_ms=float(np.mean(t_p)),
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                         ms_back_to_back=t_call)
+        else:
+            stats[f"ms_{n}"], stats[f"bound_ms_{n}"] = ms_k, bound_ms
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    return stats
+
+
+def phase_preprocess(frames, dev):
+    """CLAHE on the card against the CPU on one full-size frame, and
+    FM-RANSAC on the card on a synthetic two-view scene."""
+    import torch
+
+    from ic_gvins_tpu_torch.vision.preprocess import clahe
+    from ic_gvins_tpu_torch.vision.ransac import fundamental_ransac
+
+    img = torch.as_tensor(frames[0])
+    on_card = clahe(img.to(dev))
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(pk).all()), "KLT kernel returned non-finite points")
-    both = ok_k & ok_p
-    check(int(both.sum()) > 0, "no feature tracked by both kernel and plain version")
-    err = float((pk - pp).abs()[both].max())
-    agree = float((ok_k == ok_p).float().mean())
-    flow = (pk - pts0)[ok_k].cpu().numpy()
-    flow_err = float(np.median(np.linalg.norm(flow - np.array(FLOW), axis=1)))
-    frac = float(ok_k.float().mean())
-    log(f"phase 2 klt: {N_FEATURES} features, 4 levels of {IMG_W}x{IMG_H}: "
-        f"ok kernel {frac:.3f}, ok agreement {agree:.4f} (>= {KLT_OK_AGREE}), "
-        f"max |kernel - plain| {err:.3g} px (<= {KLT_PTS_ATOL}), "
-        f"median flow error {flow_err:.3g} px (<= {FLOW_ATOL})")
-    check(err <= KLT_PTS_ATOL, "KLT kernel disagrees with the plain version")
-    check(agree >= KLT_OK_AGREE, "KLT kernel ok flags disagree with the plain version")
-    check(flow_err <= FLOW_ATOL and frac >= 0.9, "KLT kernel missed the known flow")
+    err = float((on_card.cpu() - clahe(img)).abs().max())
+    ms_clahe = cuda_ms(lambda: clahe(img.to(dev)), 5)
+    log(f"phase 2 clahe: {IMG_W}x{IMG_H} on the card vs the CPU: max |diff| {err:.3g} grey "
+        f"levels (<= {CLAHE_ATOL}), output std {float(on_card.std()):.1f} (input "
+        f"{float(img.std()):.1f}), {ms_clahe:.3f} ms per frame with its host-to-device copy")
+    check(err <= CLAHE_ATOL, "CLAHE on the card disagrees with the CPU")
+    check(float(on_card.std()) > float(img.std()), "CLAHE did not raise the contrast")
 
-    kernel = lambda: klt_cuda.lk_track_bidirectional(*args)  # noqa: E731
-    plain = lambda: klt.lk_track_bidirectional(*args)  # noqa: E731
-    for _ in range(3):
-        kernel()
-        plain()
-    # in turns: plain, kernel, kernel, plain. The kernel's time is the
-    # card's (calls queued behind a spin); the plain version syncs with the
-    # host every iteration, so its time is what a caller waits.
-    t_p1 = cuda_ms(plain, 10)
-    t_k1 = cuda_ms(kernel, 50, queue_ahead=True)
-    t_k2 = cuda_ms(kernel, 50, queue_ahead=True)
-    t_p2 = cuda_ms(plain, 10)
-    t_call = cuda_ms(kernel, 50)
-    ms_k, ms_p = 0.5 * (t_k1 + t_k2), 0.5 * (t_p1 + t_p2)
-    log(f"phase 2 klt time: kernel {ms_k:.4f} ms on the card ({t_k1:.4f}, {t_k2:.4f}), "
-        f"{t_call:.4f} ms per call back to back; plain {ms_p:.4f} ms "
-        f"({t_p1:.4f}, {t_p2:.4f}) per bidirectional call")
-    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    n, n_out = N_FEATURES, N_FEATURES // 5
+    uv0, uv1, is_out = two_view_scene(n, n_out, seed=0)
+    args = (torch.as_tensor(uv0, device=dev), torch.as_tensor(uv1, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev), 1.5)
+    inl, F = fundamental_ransac(*args, torch.Generator().manual_seed(0))
+    inl = inl.cpu().numpy()
+    kept = float(inl[~is_out].mean())
+    ms_ransac = cuda_ms(lambda: fundamental_ransac(*args, torch.Generator().manual_seed(0)), 5)
+    log(f"phase 2 ransac: {n} correspondences, {n_out} gross outliers: kept "
+        f"{kept:.3f} of the true inliers (>= {RANSAC_KEEP}), {int(inl[is_out].sum())} "
+        f"outliers kept (0), {ms_ransac:.3f} ms per call")
+    check(bool(torch.isfinite(F).all()), "FM-RANSAC returned a non-finite F")
+    check(kept >= RANSAC_KEEP, "FM-RANSAC dropped too many true inliers")
+    check(not inl[is_out].any(), "FM-RANSAC kept a gross outlier")
 
 
 def phase_frontend(frames, dev):
@@ -181,7 +304,9 @@ def phase_frontend(frames, dev):
 
     cam = cam_mod.Camera.create(cam_mod.DEFAULT_INTRINSIC, cam_mod.DEFAULT_DISTORTION,
                                 cam_mod.DEFAULT_RESOLUTION, device=dev)
+    # every stage at its default: CLAHE and FM-RANSAC on
     fe = Frontend(cam, max_features=N_FEATURES, pyramid_levels=PYR_LEVELS, cell=CELL)
+    check(fe.use_clahe and fe.fm_ransac, "the front end's defaults switch a stage off")
     q = np.array([1.0, 0.0, 0.0, 0.0])
     prev_ids, walls, kept, moves = None, [], [], []
     for k, img in enumerate(frames):
@@ -205,6 +330,20 @@ def phase_frontend(frames, dev):
     check(len(prev_ids) >= 0.8 * N_FEATURES, "frontend holds too few features")
     check(min(kept) >= TRACKED_MIN, "frontend lost too many features")
     check(flow_err <= FLOW_ATOL, "frontend tracks miss the known flow")
+
+    # histogram gate: a frame at a quarter of the brightness is skipped and
+    # the previous observations come back unchanged
+    fe = Frontend(cam, max_features=N_FEATURES, pyramid_levels=PYR_LEVELS, cell=CELL,
+                  check_histogram=True)
+    for k in range(2):
+        before = fe.process(0.1 * k, frames[k], q_wc=q, p_wc=np.zeros(3))
+    after = fe.process(0.2, frames[2] * 0.25, q_wc=q, p_wc=np.zeros(3))
+    check(fe.frame_count == 2 and all(np.array_equal(a, b) for a, b in zip(before, after)),
+          "the histogram gate let an illumination glitch through")
+    after = fe.process(0.2, frames[2], q_wc=q, p_wc=np.zeros(3))
+    check(fe.frame_count == 3 and len(after[0]) >= 0.8 * N_FEATURES,
+          "the histogram gate rejected a good frame")
+    log("phase 3 histogram gate: dark frame skipped, next frame tracked")
 
 
 def round_inputs(dev):
@@ -297,6 +436,7 @@ def main():
     phase_build()
     frames = make_frames(N_FRAMES)
     klt_stats = phase_klt(frames, dev)
+    phase_preprocess(frames, dev)
 
     klt_cuda.lk_track_bidirectional.launches = 0  # count the main path only
     phase_frontend(frames, dev)

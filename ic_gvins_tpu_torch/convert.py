@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .data.types import NavState
+from .device import resolve_device
 from .ins.preintegration import PreintData
 from .solver.window import Prior, Window
 
@@ -29,10 +30,11 @@ def _field(tree, name):
     return tree[name] if isinstance(tree, dict) else getattr(tree, name)
 
 
-def to_torch(cls, tree, device="cpu"):
-    """Build ``cls`` from numpy data on ``device``; ints stay ints where
-    the container declares them (``Camera.width``/``height``) and ``None``
-    stays ``None``."""
+def to_torch(cls, tree, device=None):
+    """Build ``cls`` from numpy data on ``device`` (the card when it is
+    ``None``); ints stay ints where the container declares them
+    (``Camera.width``/``height``) and ``None`` stays ``None``."""
+    device = resolve_device(device)
     nested = _NESTED.get(cls, {})
     ints = {k for k, t in cls.__annotations__.items() if t is int}
     kw = {}

@@ -1,17 +1,16 @@
 """Visual front end: INS-aided KLT tracking and feature replenishment
 over raw images (``engine/frontend.py``).
 
-Per frame, ``track_frame`` builds the pyramid, predicts the LK seeds
-(rotation-only from the INS attitude, full reprojection for mapped
-landmarks; float64), runs the bidirectional KLT (float32; the Hopper
-kernel on a CUDA device) and normalizes the tracked points;
+Per frame, ``track_frame`` equalizes the image (CLAHE), builds the
+pyramid, predicts the LK seeds (rotation-only from the INS attitude, full
+reprojection for mapped landmarks; float64), runs the bidirectional KLT
+(float32; the Hopper kernel on a CUDA device), normalizes the tracked
+points and culls them by FM-RANSAC on undistorted pixels;
 ``detect_frame`` replenishes features with grid Shi-Tomasi + subpixel
 refinement. ``Frontend`` keeps the fixed-capacity feature table in numpy
 on the host, as the JAX package does, and the previous pyramid on the
-device between frames.
-
-Not ported yet: CLAHE preprocessing, the histogram gate and FM-RANSAC
-epipolar culling; the constructor raises if any of them is asked for.
+device between frames; ``check_histogram`` adds the illumination-glitch
+gate, which skips a frame whose histogram differs from the last one's.
 """
 
 import numpy as np
@@ -20,15 +19,29 @@ import torch
 from ..common import rotation as rot
 from ..vision import camera as cam_mod
 from ..vision import klt_cuda
+from ..vision import ransac as ransac_mod
 from ..vision.detector import corner_subpix, detect_features
+from ..vision.preprocess import clahe, histogram_correlation
 from ..vision.pyramid import build_pyramid
+
+RANSAC_SEED = 0  # with the frame counter, the seed of each frame's RANSAC draws
+
+
+def prep_frame(img, levels: int, use_clahe: bool):
+    """Preprocess + pyramid (first frame and the frame after a reset)."""
+    return build_pyramid(clahe(img) if use_clahe else img, levels)
 
 
 def track_frame(cam, prev_pyr, img, pts, valid, q_prev_wc, q_wc,
-                has_rot: bool, p_wc, lm_pw, lm_ok, levels: int):
-    """Pyramid -> LK seed prediction -> bidirectional KLT -> normalize.
+                has_rot: bool, p_wc, lm_pw, lm_ok, levels: int,
+                use_clahe: bool, fm_ransac: bool, uv_prev, ransac_thr: float,
+                generator):
+    """Preprocess -> pyramid -> LK seed prediction -> bidirectional KLT ->
+    normalize -> FM-RANSAC epipolar culling. ``uv_prev`` [F,2] f64 holds
+    the previous normalized observations and ``generator`` is the
+    ``torch.Generator`` of the RANSAC draws.
     Returns (pyr, pts1 [F,2] f32, ok [F], uv1 [F,2] f64)."""
-    pyr = build_pyramid(img, levels)
+    pyr = prep_frame(img, levels, use_clahe)
 
     # rotation-only seed
     q_rel = rot.quat_mul(rot.quat_inv(q_wc), q_prev_wc)
@@ -52,7 +65,17 @@ def track_frame(cam, prev_pyr, img, pts, valid, q_prev_wc, q_wc,
 
     pts1, ok, _ = klt_cuda.lk_track_bidirectional(prev_pyr, pyr, pts, pred, valid)
     uv1 = cam_mod.pixel_to_cam(cam, pts1.to(torch.float64))[:, :2]
-    return pyr, pts1, ok & valid, uv1
+    ok = ok & valid
+
+    if fm_ransac:
+        # epipolar culling on undistorted pixels; the RANSAC always runs
+        # and its mask applies only with at least MIN_POINTS tracked points
+        to_px = lambda nrm: torch.stack(  # noqa: E731
+            [cam.fx * nrm[:, 0] + cam.cx, cam.fy * nrm[:, 1] + cam.cy], -1)
+        inl, _ = ransac_mod.fundamental_ransac(
+            to_px(uv_prev), to_px(uv1), ok, ransac_thr, generator)
+        ok = ok & (inl | (ok.sum() < ransac_mod.MIN_POINTS))
+    return pyr, pts1, ok, uv1
 
 
 def detect_frame(cam, img0, pts, valid, cell: int, max_new: int, subpix: bool):
@@ -69,21 +92,24 @@ def detect_frame(cam, img0, pts, valid, cell: int, max_new: int, subpix: bool):
 class Frontend:
     def __init__(self, cam: cam_mod.Camera, max_features: int = 200,
                  pyramid_levels: int = 3, cell: int = 64,
-                 use_clahe: bool = False, check_histogram: bool = False,
-                 fm_ransac: bool = False, subpix: bool = True):
-        if use_clahe or check_histogram or fm_ransac:
-            raise NotImplementedError(
-                "CLAHE, the histogram gate and FM-RANSAC are not ported yet"
-            )
+                 use_clahe: bool = True, check_histogram: bool = False,
+                 histogram_threshold: float = 0.7, fm_ransac: bool = True,
+                 ransac_threshold: float = 1.5, subpix: bool = True):
         self.cam = cam
         self.device = cam.fx.device
         self.max_features = max_features
         self.levels = pyramid_levels
         self.cell = cell
+        self.use_clahe = use_clahe
+        self.check_histogram = check_histogram
+        self.histogram_threshold = histogram_threshold
+        self.fm_ransac = fm_ransac
+        self.ransac_threshold = ransac_threshold
         self.subpix = subpix
         self.frame_count = 0
         self.min_track_features = max(8, max_features // 20)
         self.track_lost = False
+        self.prev_raw = None  # last accepted raw frame (histogram gate)
         self.prev_pyr = None  # device tensors, kept between frames
         self.prev_time = None
         self.prev_q_wc = None
@@ -108,12 +134,21 @@ class Frontend:
 
     def process(self, t: float, img, q_wc=None, p_wc=None, lm_lookup=None):
         """Track into the new frame and replenish. Returns (ids, uv_norm,
-        vel_norm) of the currently tracked features (numpy).
+        vel_norm) of the currently tracked features (numpy); the previous
+        observations unchanged when the histogram gate rejects the frame
+        as an illumination glitch.
 
         ``q_wc``/``p_wc``: predicted camera pose at ``t``; ``lm_lookup``
         maps the feature-id array to ``(pw [n,3], ok [n])`` world positions
         of triangulated landmarks for the full-pose seed."""
         img = torch.as_tensor(img, device=self.device)
+        if self.check_histogram and self.prev_raw is not None:
+            corr = float(histogram_correlation(self.prev_raw, img))
+            if corr < self.histogram_threshold:
+                sel = self.valid
+                return self.ids[sel], self.uv_norm[sel].copy(), self.vel_norm[sel].copy()
+        self.prev_raw = img
+
         if self.prev_pyr is not None and self.valid.any():
             F = self.max_features
             lm_pw = np.zeros((F, 3), np.float64)
@@ -124,6 +159,9 @@ class Frontend:
             has_rot = self.prev_q_wc is not None and q_wc is not None
             qi = np.array([1.0, 0.0, 0.0, 0.0])
             f64 = torch.float64
+            # the draws are a function of the frame counter, so a replay
+            # culls the same tracks
+            gen = torch.Generator().manual_seed((RANSAC_SEED << 32) + self.frame_count)
             pyr, pts1_d, ok_d, uv1_d = track_frame(
                 self.cam, self.prev_pyr, img,
                 self._dev(self.pts), self._dev(self.valid),
@@ -132,7 +170,8 @@ class Frontend:
                 has_rot,
                 self._dev(p_wc if p_wc is not None else np.zeros(3), f64),
                 self._dev(lm_pw, f64), self._dev(lm_ok, torch.bool),
-                self.levels,
+                self.levels, self.use_clahe, self.fm_ransac,
+                self._dev(self.uv_norm, f64), self.ransac_threshold, gen,
             )
             pts1, ok, uv_new = (x.cpu().numpy() for x in (pts1_d, ok_d, uv1_d))
             dt = max(t - self.prev_time, 1e-3)
@@ -141,7 +180,7 @@ class Frontend:
             self.uv_norm = np.where(ok[:, None], uv_new, self.uv_norm)
             self.valid = ok
         else:
-            pyr = build_pyramid(img, self.levels)
+            pyr = prep_frame(img, self.levels, self.use_clahe)
 
         # tracking lost: too few survivors -> reset, re-detect on this frame
         self.track_lost = (

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..data.types import NavState
+from ..device import resolve_device
 from ..factors.manifold import node_boxminus, node_boxplus, pose_boxminus, pose_boxplus
 from ..ins.preintegration import PreintData
 
@@ -108,7 +109,8 @@ def _zero_nodes(n, dtype, device) -> NavState:
 
 
 def empty_window(n_nodes: int, n_landmarks: int, dtype=torch.float64,
-                 device="cpu") -> Window:
+                 device=None) -> Window:
+    device = resolve_device(device)
     N, L = n_nodes, n_landmarks
     kw = dict(dtype=dtype, device=device)
     eye15 = torch.eye(NODE_DOF, **kw).expand(N - 1, NODE_DOF, NODE_DOF)
@@ -149,7 +151,8 @@ def empty_window(n_nodes: int, n_landmarks: int, dtype=torch.float64,
     )
 
 
-def empty_prior(n_nodes: int, dtype=torch.float64, device="cpu") -> Prior:
+def empty_prior(n_nodes: int, dtype=torch.float64, device=None) -> Prior:
+    device = resolve_device(device)
     dx = n_nodes * NODE_DOF + EXT_DOF
     kw = dict(dtype=dtype, device=device)
     return Prior(

@@ -9,6 +9,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 # The engine's default camera (1278 x 1022), as the JAX package's
 # ``engine/config.py`` CameraConfig defines it.
 DEFAULT_INTRINSIC = (787.16, 787.39, 664.4, 519.5)
@@ -32,9 +34,11 @@ class Camera(NamedTuple):
 
     @staticmethod
     def create(intrinsic, distortion, resolution, dtype=torch.float64,
-               device="cpu") -> "Camera":
+               device=None) -> "Camera":
         """intrinsic = [fx, fy, cx, cy(, skew)], distortion =
-        [k1, k2, p1, p2(, k3)], resolution = (width, height)."""
+        [k1, k2, p1, p2(, k3)], resolution = (width, height); on the card
+        unless ``device`` says otherwise."""
+        device = resolve_device(device)
         intr, dist = list(intrinsic), list(distortion)
         a = lambda x: torch.tensor(x, dtype=dtype, device=device)  # noqa: E731
         return Camera(

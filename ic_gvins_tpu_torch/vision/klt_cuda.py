@@ -2,8 +2,10 @@
 
 Replaces the TPU kernel ``ic_gvins_tpu/vision/klt_pallas.py:_track_level_pallas``
 and the functions around it, ``lk_track_pallas`` / ``lk_track_bidirectional_pallas``;
-the kernel's source note says what bounds it (gathers: ~441 x 4 bilinear
-taps per Gauss-Newton step per feature) and how its design answers that.
+the kernel's source note says what bounds it (the latency of each
+feature's serial chain of level passes and Gauss-Newton steps, not bytes
+or operations) and how its design answers that: one block per feature,
+the pixels staged in shared memory by asynchronous copies.
 
 ``lk_track_bidirectional`` takes the same arguments as the plain version
 ``klt.lk_track_bidirectional``. For CPU tensors it runs that plain
@@ -66,11 +68,9 @@ def load_library():
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     fn = lib.klt_bidirectional_launch
-    ptr_array = ctypes.POINTER(ctypes.c_void_p)
-    int_array = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ptr_array, ptr_array, int_array, int_array, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
@@ -101,6 +101,31 @@ def _check_inputs(pyr0, pyr1, pts0, pts1_init, valid):
         raise ValueError("valid must be a bool [n] tensor on the points' device")
 
 
+def _launch(pyr0, pyr1, pts0, pts1_init, valid, fb_thresh):
+    """Launch the kernel on checked CUDA inputs: (pts1, ok, fb_err, work)."""
+    fn = load_library().klt_bidirectional_launch
+    n, levels = pts0.shape[0], len(pyr0)
+    # one allocation for all outputs: n x (2 + 1) float32, n x 2 int32, n bool
+    out = torch.empty(21 * n, dtype=torch.uint8, device=pts0.device)
+    pts1 = out[: 8 * n].view(torch.float32).view(n, 2)
+    fb = out[8 * n : 12 * n].view(torch.float32)
+    work = out[12 * n : 20 * n].view(torch.int32).view(n, 2)
+    ok = out[20 * n :].view(torch.bool)
+    if n == 0:  # nothing to launch
+        return pts1, ok, fb, work
+    imgs = (ctypes.c_void_p * (2 * levels))(*[x.data_ptr() for x in (*pyr0, *pyr1)])
+    shapes = (ctypes.c_int * (2 * levels))(*[d for x in pyr0 for d in x.shape])
+    with torch.cuda.device(pts0.device):
+        err = fn(imgs, shapes, levels, pts0.data_ptr(), pts1_init.data_ptr(),
+                 valid.data_ptr(), pts1.data_ptr(), fb.data_ptr(), work.data_ptr(),
+                 ok.data_ptr(), n, float(fb_thresh),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"KLT kernel launch failed: cudaError {err}")
+    lk_track_bidirectional.launches += 1
+    return pts1, ok, fb, work
+
+
 def lk_track_bidirectional(pyr0, pyr1, pts0, pts1_init, valid, fb_thresh=0.5):
     """Forward + backward pyramidal LK with the forward-backward gate.
 
@@ -113,26 +138,27 @@ def lk_track_bidirectional(pyr0, pyr1, pts0, pts1_init, valid, fb_thresh=0.5):
                                           fb_thresh)
     if pts0.device.type != "cuda":
         raise ValueError(f"no KLT kernel for device {pts0.device}")
-    fn = load_library().klt_bidirectional_launch
-    n, levels = pts0.shape[0], len(pyr0)
-    pts1 = torch.empty((n, 2), dtype=torch.float32, device=pts0.device)
-    ok = torch.empty(n, dtype=torch.bool, device=pts0.device)
-    fb = torch.empty(n, dtype=torch.float32, device=pts0.device)
-    ptrs = ctypes.c_void_p * levels
-    ints = ctypes.c_int * levels
-    with torch.cuda.device(pts0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptrs(*(x.data_ptr() for x in pyr0)),
-                 ptrs(*(x.data_ptr() for x in pyr1)),
-                 ints(*(x.shape[0] for x in pyr0)),
-                 ints(*(x.shape[1] for x in pyr0)),
-                 levels, pts0.data_ptr(), pts1_init.data_ptr(),
-                 valid.data_ptr(), pts1.data_ptr(), ok.data_ptr(),
-                 fb.data_ptr(), n, float(fb_thresh), stream)
-    if err != 0:
-        raise RuntimeError(f"KLT kernel launch failed: cudaError {err}")
-    lk_track_bidirectional.launches += 1
-    return pts1, ok, fb
+    return _launch(pyr0, pyr1, pts0, pts1_init, valid, fb_thresh)[:3]
 
 
 lk_track_bidirectional.launches = 0
+
+
+def lk_track_bidirectional_counted(pyr0, pyr1, pts0, pts1_init, valid, fb_thresh=0.5):
+    """The kernel's results and the work it did for them: (pts1, ok, fb_err,
+    work), work int32 [n, 2] = each feature's (level passes run,
+    Gauss-Newton steps taken) over both directions. The passes are packed,
+    4 bits per level with level 0 lowest: ``passes_per_level`` unpacks them.
+    A call's roofline bound is computed from these counts. CUDA tensors
+    only."""
+    _check_inputs(pyr0, pyr1, pts0, pts1_init, valid)
+    if pts0.device.type != "cuda":
+        raise ValueError("the work counts come from the kernel: CUDA tensors only")
+    return _launch(pyr0, pyr1, pts0, pts1_init, valid, fb_thresh)
+
+
+def passes_per_level(work, levels):
+    """Level passes of a counted call summed over its features, per level
+    (level 0 first), from the packed counts in ``work[:, 0]``."""
+    code = work[:, 0].cpu()
+    return [int(((code >> (4 * lv)) & 15).sum()) for lv in range(levels)]

@@ -44,7 +44,18 @@ def _landmarks_ahead(fe):
     return lookup
 
 
-@pytest.mark.parametrize("scenario", ["drift", "seeded", "lost"])
+# Front-end cases: (scenario, stages switched on). The scenarios run with
+# every stage off, as before; the stage cases run the "drift" frames.
+FRONTEND_CASES = {
+    "drift": {}, "seeded": {}, "lost": {},
+    "clahe": {"use_clahe": True},
+    "ransac": {"fm_ransac": True},
+    "defaults": {"use_clahe": True, "fm_ransac": True},
+    "histogram_gate": {"check_histogram": True},
+}
+
+
+@pytest.mark.parametrize("scenario", list(FRONTEND_CASES))
 def test_frontend_matches_jax(scenario):
     """Four 160x120 frames drifting by a subpixel flow, 32 features, 32 px
     cells. "seeded" turns the camera by 1 mrad a frame (rotation seeds)
@@ -53,17 +64,30 @@ def test_frontend_matches_jax(scenario):
     detects anew. Ids and the lost flag must be equal; uv (normalized)
     agree to 1e-6, i.e. ~2e-4 px at this focal length, the size of the
     float32 rounding of the subpixel window sums; velocities to 1e-5 (uv
-    over a 0.1 s step)."""
+    over a 0.1 s step).
+
+    "clahe" equalizes every frame on both sides (the equalized images
+    agree to ~1e-4 grey levels, test_torch_preprocess.py, which the
+    tracker turns into less than 1e-6 of uv); "ransac" culls by FM-RANSAC:
+    the flow is clean, so every tracked feature is an inlier on both sides
+    whatever their draws, and ids and uv agree as before; "defaults" has
+    both on, as the reference runs; in "histogram_gate" the third frame
+    has a quarter of the brightness, the gate rejects it on both sides and
+    the previous observations come back unchanged."""
+    stages = {"use_clahe": False, "fm_ransac": False, **FRONTEND_CASES[scenario]}
     jf = JFrontend(JCamera.create(INTR, DIST, RES), max_features=32, cell=32,
-                   use_pallas=False, use_clahe=False, fm_ransac=False)
-    tf = Frontend(Camera.create(INTR, DIST, RES), max_features=32, cell=32)
+                   use_pallas=False, **stages)
+    tf = Frontend(Camera.create(INTR, DIST, RES, device="cpu"), max_features=32, cell=32,
+                  **stages)
     base = random_texture(120, 160, seed=3)
     seeded = scenario == "seeded"
-    lost = []
+    lost, outs = [], []
     for k in range(4):
         img = np.array(shift_image(base, 1.1 * k, -0.6 * k), np.float32)
         if scenario == "lost" and k == 2:
             img = np.zeros_like(img)
+        if scenario == "histogram_gate" and k == 2:
+            img = img * 0.25
         yaw = 1e-3 * k if seeded else 0.0
         q = np.array([np.cos(yaw / 2), 0.0, np.sin(yaw / 2), 0.0])
         j_ids, j_uv, j_vel = jf.process(0.1 * k, img, q_wc=q, p_wc=np.zeros(3),
@@ -74,16 +98,80 @@ def test_frontend_matches_jax(scenario):
         np.testing.assert_allclose(t_uv, j_uv, rtol=0, atol=1e-6)
         np.testing.assert_allclose(t_vel, j_vel, rtol=0, atol=1e-5)
         assert tf.track_lost == jf.track_lost
+        assert tf.frame_count == jf.frame_count
         lost.append(tf.track_lost)
+        outs.append((t_ids, t_uv, t_vel))
     assert len(t_ids) >= 12
     assert tf.next_id == jf.next_id
     assert any(lost) == (scenario == "lost")
+    if scenario == "histogram_gate":  # frame 2 was skipped: frame 1's output again
+        for a, b in zip(outs[1], outs[2]):
+            np.testing.assert_array_equal(a, b)
+        assert tf.frame_count == 3
+    if stages["fm_ransac"]:  # nothing culled on a clean flow
+        assert set(outs[1][0]) <= set(outs[3][0])
 
 
-@pytest.mark.parametrize("flag", ["use_clahe", "fm_ransac", "check_histogram"])
-def test_frontend_refuses_unported_stages(flag):
-    with pytest.raises(NotImplementedError):
-        Frontend(Camera.create(INTR, DIST, RES), **{flag: True})
+def test_frontend_defaults_are_the_reference_defaults():
+    """The port's Frontend takes the JAX Frontend's stage arguments with
+    the same defaults (``use_pallas`` picks a JAX backend, no stage)."""
+    import inspect
+
+    want = inspect.signature(JFrontend.__init__).parameters
+    got = inspect.signature(Frontend.__init__).parameters
+    assert [k for k in want if k != "use_pallas"] == list(got)
+    for k, p in got.items():
+        assert p.default == want[k].default, k
+
+
+def test_frontend_ransac_culls_and_replays():
+    """A frame pair in three parts that move by (3, 0), (0, 4) and
+    (-3, -3) px, which no single epipolar geometry explains to 0.5 px:
+    FM-RANSAC drops tracks that the tracker alone keeps, and the same
+    frames give the same survivors again (the draws are seeded from the
+    frame counter). With 14 features, fewer than the 15 the mask needs,
+    nothing is culled."""
+    base = random_texture(120, 160, seed=3)
+    moved = np.array(shift_image(base, 3.0, 0.0), np.float32)
+    moved[70:] = np.array(shift_image(base, 0.0, 4.0), np.float32)[70:]
+    moved[:, 100:] = np.array(shift_image(base, -3.0, -3.0), np.float32)[:, 100:]
+    runs = {}
+    for name, fm, n in (("off", False, 64), ("on", True, 64), ("again", True, 64),
+                        ("few_off", False, 14), ("few_on", True, 14)):
+        fe = Frontend(Camera.create(INTR, DIST, RES, device="cpu"), max_features=n,
+                      cell=16, use_clahe=False, fm_ransac=fm, ransac_threshold=0.5)
+        fe.process(0.0, base)
+        first = fe.next_id  # later ids are replenished features
+        fe.process(0.1, moved)
+        runs[name] = fe.ids[fe.valid & (fe.ids < first)]
+    assert len(runs["on"]) < len(runs["off"])
+    assert set(runs["on"]) <= set(runs["off"])
+    np.testing.assert_array_equal(runs["on"], runs["again"])
+    np.testing.assert_array_equal(runs["few_on"], runs["few_off"])
+    assert len(runs["few_on"]) >= 8
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device given the port's entry points go to cuda:0, and
+    raise when there is no card; none falls back to the CPU."""
+    from ic_gvins_tpu_torch.device import resolve_device
+    from ic_gvins_tpu_torch.solver.window import empty_prior, empty_window
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: resolve_device(),
+        lambda: Camera.create(INTR, DIST, RES),
+        lambda: to_torch(Camera, to_numpy(Camera.create(INTR, DIST, RES, device="cpu"))),
+        lambda: empty_window(3, 4),
+        lambda: empty_prior(3),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert empty_prior(3, device="cpu").H.device.type == "cpu"
 
 
 def _port_round(win, prior, cfg, params, imu, iters):
@@ -100,9 +188,9 @@ def rounds():
     imu = make_torch_fixture.raw_imu(win.n_nodes - 1, params)
     want = make_torch_fixture.jax_keyframe_round(win, prior, cfg, params, imu, iters=20)
     got = _port_round(
-        to_torch(Window, to_numpy(win)), to_torch(Prior, to_numpy(prior)),
-        to_torch(SolverConfig, to_numpy(cfg)), to_torch(IntegrationParams, to_numpy(params)),
-        to_torch(ImuSeq, to_numpy(imu)), 20)
+        *(to_torch(t, to_numpy(x), "cpu") for t, x in (
+            (Window, win), (Prior, prior), (SolverConfig, cfg),
+            (IntegrationParams, params), (ImuSeq, imu))), 20)
     return want, got
 
 
@@ -162,7 +250,8 @@ def test_port_imports_no_jax():
         "import ic_gvins_tpu_torch, ic_gvins_tpu_torch.engine.frontend, "
         "ic_gvins_tpu_torch.engine.keyframe, ic_gvins_tpu_torch.solver.lm, "
         "ic_gvins_tpu_torch.factors.marginalization, ic_gvins_tpu_torch.convert, "
-        "ic_gvins_tpu_torch.vision.klt_cuda\n"
+        "ic_gvins_tpu_torch.vision.klt_cuda, ic_gvins_tpu_torch.vision.preprocess, "
+        "ic_gvins_tpu_torch.vision.ransac, ic_gvins_tpu_torch.device\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ic_gvins_tpu')]\n"
         "assert not bad, bad\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -181,7 +270,7 @@ def test_cpu_tensors_never_reach_cuda(monkeypatch):
         raise AssertionError("kernel library loaded for CPU tensors")
 
     monkeypatch.setattr(klt_cuda, "load_library", boom)
-    tf = Frontend(Camera.create(INTR, DIST, RES), max_features=16, cell=32)
+    tf = Frontend(Camera.create(INTR, DIST, RES, device="cpu"), max_features=16, cell=32)
     base = random_texture(120, 160, seed=5)
     for k in range(2):
         tf.process(0.1 * k, np.array(shift_image(base, 0.5 * k, 0.0), np.float32))

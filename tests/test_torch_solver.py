@@ -54,9 +54,9 @@ def assert_rel(got, want, tol, what=""):
 def port(jax_state):
     """(window, prior, cfg, params) of the JAX package -> the port's."""
     win, prior, cfg, params = jax_state
-    return (to_torch(Window, to_numpy(win)), to_torch(Prior, to_numpy(prior)),
-            to_torch(SolverConfig, to_numpy(cfg)),
-            to_torch(IntegrationParams, to_numpy(params)))
+    return (to_torch(Window, to_numpy(win), "cpu"), to_torch(Prior, to_numpy(prior), "cpu"),
+            to_torch(SolverConfig, to_numpy(cfg), "cpu"),
+            to_torch(IntegrationParams, to_numpy(params), "cpu"))
 
 
 def perturbed(win, seed=0):
@@ -133,9 +133,9 @@ def preint_case(tiny):
     state0 = state0._replace(ba=state0.ba + 1e-3)
     state1 = jax.tree.map(lambda x: x[1:3], win.nodes)
     want = jax.jit(jax.vmap(jpre.preintegrate, in_axes=(None, 0, 0)))(params, state0, imu)
-    tp = to_torch(IntegrationParams, to_numpy(params))
-    got = tpre.preintegrate(tp, to_torch(NavState, to_numpy(state0)),
-                            to_torch(ImuSeq, to_numpy(imu)))
+    tp = to_torch(IntegrationParams, to_numpy(params), "cpu")
+    got = tpre.preintegrate(tp, to_torch(NavState, to_numpy(state0), "cpu"),
+                            to_torch(ImuSeq, to_numpy(imu), "cpu"))
     return params, state0, state1, want, tp, got
 
 
@@ -155,10 +155,10 @@ def test_preint_end_state_matches_jax(preint_case):
 
 def test_preint_residuals_match_jax(preint_case):
     params, state0, state1, want, tp, got = preint_case
-    ts0 = to_torch(NavState, to_numpy(state0))
-    ts1 = to_torch(NavState, to_numpy(state1))
+    ts0 = to_torch(NavState, to_numpy(state0), "cpu")
+    ts1 = to_torch(NavState, to_numpy(state1), "cpu")
     # feed both sides the same preintegration (the JAX one)
-    gp = to_torch(tpre.PreintData, to_numpy(want))
+    gp = to_torch(tpre.PreintData, to_numpy(want), "cpu")
     j_r, j_rj = jax.jit(lambda *a: (
         jax.vmap(jpre.preint_residual, in_axes=(0, 0, 0, None))(*a),
         jax.vmap(jpre.preint_residual_jac, in_axes=(0, 0, 0, None))(*a),
@@ -283,7 +283,7 @@ def test_marginalize_and_slide_matches_jax(tiny, optimized):
     _, prior, cfg, params = tiny
     (jw, _), (tw, _) = optimized
     j_win, j_prior = jax.jit(jmarg.marginalize_and_slide)(jw, prior, cfg, params)
-    t_win, t_prior = tmarg.marginalize_and_slide(tw, to_torch(Prior, to_numpy(prior)),
+    t_win, t_prior = tmarg.marginalize_and_slide(tw, to_torch(Prior, to_numpy(prior), "cpu"),
                                                  *port(tiny)[2:])
     assert_rel(t_prior.H, j_prior.H, ITERATIVE, "H")
     assert_rel(t_prior.g, j_prior.g, ITERATIVE, "g")
@@ -312,16 +312,16 @@ def _same_tree(got, want):
                                   "init_prior_ext7", "init_prior_ext8"])
 def test_window_constructors_match_jax(tiny, case):
     if case == "empty_window":
-        _same_tree(twin.empty_window(5, 7), jwin.empty_window(5, 7))
+        _same_tree(twin.empty_window(5, 7, device="cpu"), jwin.empty_window(5, 7))
     elif case == "empty_prior":
-        _same_tree(twin.empty_prior(5), jwin.empty_prior(5))
+        _same_tree(twin.empty_prior(5, device="cpu"), jwin.empty_prior(5))
     else:
         rng = np.random.default_rng(6)
         stds = [rng.random(n) + 0.1 for n in (6, 9)]
         if case != "init_prior":
             stds.append(rng.random(int(case[-1])) + 0.1)
         win = tiny[0]
-        _same_tree(twin.make_init_prior(to_torch(Window, to_numpy(win)),
+        _same_tree(twin.make_init_prior(to_torch(Window, to_numpy(win), "cpu"),
                                         *map(torch.from_numpy, stds)),
                    jwin.make_init_prior(win, *map(jnp.asarray, stds)))
 
@@ -330,7 +330,7 @@ def test_window_constructors_match_jax(tiny, case):
 
 def test_convert_round_trip(tiny):
     win = tiny[0]
-    back = to_numpy(to_torch(Window, to_numpy(win)))
+    back = to_numpy(to_torch(Window, to_numpy(win), "cpu"))
     flat_a = jax.tree.leaves(to_numpy(win))
     flat_b = jax.tree.leaves(back)
     assert len(flat_a) == len(flat_b)
@@ -341,4 +341,4 @@ def test_convert_round_trip(tiny):
 def test_odometer_window_is_refused():
     odo = to_numpy(jwin.empty_window(4, 3, odo=True))
     with pytest.raises(ValueError):
-        to_torch(Window, odo)
+        to_torch(Window, odo, "cpu")

@@ -42,7 +42,7 @@ def test_pyramid_sizes_at_engine_resolution():
 @pytest.fixture(scope="module")
 def cams():
     jc = make_camera()
-    return jc, to_torch(tcam.Camera, to_numpy(jc))
+    return jc, to_torch(tcam.Camera, to_numpy(jc), "cpu")
 
 
 def test_camera_matches_jax(cams):
@@ -71,7 +71,7 @@ def test_camera_matches_jax(cams):
 
 def test_camera_create_defaults():
     tc = tcam.Camera.create(tcam.DEFAULT_INTRINSIC, tcam.DEFAULT_DISTORTION,
-                            tcam.DEFAULT_RESOLUTION)
+                            tcam.DEFAULT_RESOLUTION, device="cpu")
     jc = make_camera()
     for k in ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3", "skew"):
         assert float(getattr(tc, k)) == float(getattr(jc, k))
