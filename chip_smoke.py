@@ -6,9 +6,11 @@
 Drives the port's main path at the engine's default sizes: the visual
 front end (``Frontend.process`` with its defaults: CLAHE, bidirectional
 KLT, FM-RANSAC) over 1278 x 1022 frames with 200 features and a 4-image
-pyramid, then one GVINS keyframe round on a 24-node x 192-landmark float64
+pyramid; one GVINS keyframe round on a 24-node x 192-landmark float64
 window (preintegrate -> triangulate -> ``optimize_impl(iters=20)`` ->
-``marginalize_and_slide``). Phases:
+``marginalize_and_slide``); then the engine as users call it, the
+``Estimator`` on sensor streams and the ``Pipeline`` on camera frames,
+with ``EngineConfig()``. Phases:
 
 1. the card's name and power limit; build the CUDA kernel (nvcc, sm_90a);
 2. KLT kernel vs its plain PyTorch version at slice shapes (200 features)
@@ -18,8 +20,20 @@ window (preintegrate -> triangulate -> ``optimize_impl(iters=20)`` ->
 3. ``Frontend.process`` over 8 frames shifted by a known subpixel flow, and
    the histogram gate on a frame at a quarter of the brightness;
 4. the keyframe round, held against the JAX package's float64 results in
-   ``tests/fixtures/torch_slice_24x192.npz`` (``tools/make_torch_fixture.py``).
+   ``tests/fixtures/torch_slice_24x192.npz`` (``tools/make_torch_fixture.py``);
+5. ``Estimator(EngineConfig())`` fed 15 s of IMU (200 Hz), GNSS (1 Hz) and
+   ideal tracks (10 Hz) from ``tests/fixtures/torch_estimator_defaults.npz``,
+   held against the JAX ``Estimator``'s run stored there
+   (``tools/make_torch_estimator_fixture.py``): the same events, node
+   times, keyframes and LM steps, the trajectory within 1e-6 m / 1e-7 rad;
+6. ``Pipeline`` (the defaults without lens distortion) on the same IMU and
+   GNSS and 150 frames of 1278 x 1022 rendered at the fixture's truth
+   camera poses: it must reach TRACKING_NORMAL, launch the KLT kernel
+   once per tracked frame and stay under tests/test_pipeline.py's 0.45 m
+   ATE bound.
 
+Phases 3 to 6 run with the kernel's launch count set to 0 before each and
+read after it; the ``launches`` of the kernels line sums phases 3 and 6.
 Every phase raises on failure. Needs a CUDA device: without one it exits
 with code 1 and prints no result. Prints a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -35,6 +49,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_slice_24x192.npz")
+ESTIMATOR_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_defaults.npz")
 
 IMG_W, IMG_H = 1278, 1022  # engine default camera
 N_FEATURES = 200
@@ -77,6 +92,21 @@ BYTES_PER_PASS = (25 * 25 + 23 * 23) * 4
 # differences, hence 1e-7.
 RTOL_CLOSED = 1e-9
 RTOL_ITERATIVE = 1e-7
+# Estimator vs the JAX package's float64 Estimator on the same streams: the
+# same decisions everywhere, hence the same rounds; each round's solve
+# differs from JAX only by rounding (relative ~1e-12), which the window
+# carries along the run.
+TRAJ_POS_ATOL = 1e-6  # m
+TRAJ_ATT_ATOL = 1e-8  # rad, on the CPU
+# On the card the solver's sums (atomic index_add_, cuBLAS and cuSOLVER
+# blockings) round otherwise than on the CPU, and differently from run to
+# run: two full-width runs ended 5.2e-9 and 8.9e-9 rad from JAX. The card
+# gets the attitude bound that matches TRAJ_POS_ATOL at the ~10 m range of
+# the landmarks.
+CARD_TRAJ_ATT_ATOL = 1e-7  # rad
+# Pipeline on rendered frames: tests/test_pipeline.py's ATE bound (after 4 s)
+PIPELINE_ATE = 0.45  # m
+PIPELINE_T_MIN = 4.0  # s
 # ~0.1 s of spinning at 2 GHz: far longer than the host takes to enqueue
 # 50 calls of the KLT wrapper (~0.13 ms each on the slowest host seen)
 SPIN_CYCLES = 200_000_000
@@ -114,6 +144,135 @@ def cuda_ms(fn, reps, queue_ahead=False):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def scenario(fx, name):
+    """One scenario of an estimator fixture (``tools/make_torch_estimator_fixture.py``)
+    as a dict of numpy arrays without the ``name/`` prefix."""
+    pre = name + "/"
+    return {k[len(pre):]: v for k, v in fx.items() if k.startswith(pre)}
+
+
+def engine_config(config_mod, s, cam=None, **overrides):
+    """The scenario's ``EngineConfig``, built by ``config_mod`` (the config
+    module of either package) from the JSON the fixture stores, with
+    ``overrides`` of its fields and ``cam``'s of the camera's."""
+    tup = lambda d: {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}  # noqa: E731
+    kw = tup(json.loads(str(s["cfg_json"])))
+    cam_kw = {**kw.pop("cam", {}), **(cam or {})}
+    cfg = config_mod.EngineConfig(**kw, **overrides)
+    if cam_kw:
+        cfg.cam = config_mod.CameraConfig(**tup(cam_kw))
+    return cfg
+
+
+def to_np(x):
+    """A tensor of either package (or a number) as a float64 or bool numpy array."""
+    x = x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    return x if x.dtype == bool else x.astype(np.float64)
+
+
+def feed(sink, est, s, on_frame):
+    """Feed a scenario's streams to ``sink`` (an ``Estimator`` or a
+    ``Pipeline`` of either package; ``est`` is its estimator) in the order
+    of the JAX package's tests: each IMU sample, then the GNSS fixes and
+    the frames stamped at or before it; ``on_frame(j)`` hands frame j to
+    the sink. Returns the event log, one row after each fix or frame:
+    ``log`` (engine state, nodes, keyframes, landmark slots in use, stats
+    rows) and the node times and keyframe flags, padded to the window."""
+    n_cap = est.cfg.max_nodes
+    rows, node_t, node_kf = [], [], []
+    gt, ft = s["gnss_t"], s["frame_t"]
+    gi = fi = 0
+
+    def record():
+        rows.append((est.state, est.n_nodes, est.n_keyframes, len(est.lm_slot), len(est.stats)))
+        node_t.append(np.pad(np.asarray(est.node_times, np.float64), (0, n_cap - est.n_nodes),
+                             constant_values=np.nan))
+        node_kf.append(np.pad(np.asarray(est.node_is_kf, bool), (0, n_cap - est.n_nodes)))
+
+    for k in range(len(s["imu_t"])):
+        t = float(s["imu_t"][k])
+        sink.add_imu(t, float(s["imu_dt"][k]), s["imu_dth"][k], s["imu_dv"][k])
+        while gi < len(gt) and gt[gi] <= t:
+            sink.add_gnss(float(gt[gi]), s["gnss_p"][gi], s["gnss_std"][gi])
+            gi += 1
+            record()
+        while fi < len(ft) and ft[fi] <= t:
+            on_frame(fi)
+            fi += 1
+            record()
+    return {"log": np.asarray(rows, np.int64), "log_node_t": np.asarray(node_t),
+            "log_node_kf": np.asarray(node_kf)}
+
+
+def observations(s, j):
+    """Frame j's ideal tracks of a scenario: (time, ids, normalized uv)."""
+    lo = int(np.sum(s["frame_n"][:j]))
+    hi = lo + int(s["frame_n"][j])
+    return float(s["frame_t"][j]), s["frame_ids"][lo:hi], s["frame_uv"][lo:hi]
+
+
+STATS_KEYS = ("t", "cost0", "cost1", "iterations", "iters_run", "n_obs", "culled",
+              "outlier_mappoints", "outlier_features", "n_nodes", "reproj_rms")
+
+
+def summarize(est):
+    """What the fixture holds of a finished run of either package's
+    ``Estimator``: trajectory, per-round stats rows, the final window's
+    active nodes and its landmark inverse depths."""
+    times, ps, qs = est.trajectory()
+    w, n = est.window, est.n_nodes
+    out = {"traj_t": np.asarray(times, np.float64), "traj_p": np.asarray(ps, np.float64),
+           "traj_q": np.asarray(qs, np.float64),
+           "stats": np.array([[float(r[k]) for k in STATS_KEYS] for r in est.stats]),
+           "node_times": np.asarray(est.node_times, np.float64),
+           "node_is_kf": np.asarray(est.node_is_kf, bool),
+           "lm_invdepth": to_np(w.lm_invdepth), "lm_valid": to_np(w.lm_valid)}
+    for k in ("p", "q", "v", "bg", "ba"):
+        out[f"nodes_{k}"] = to_np(getattr(w.nodes, k))[:n]
+    return out
+
+
+def trajectory_errors(traj_t, traj_p, s, t_min):
+    """Position errors of the trajectory entries at or after ``t_min``
+    against the scenario's 200 Hz truth."""
+    idx = np.rint((traj_t - s["truth_t"][0]) * 200.0).astype(np.int64)
+    check(np.all(np.abs(s["truth_t"][idx] - traj_t) < 1e-9), "trajectory off the truth grid")
+    sel = traj_t >= t_min
+    return np.linalg.norm(traj_p[sel] - s["truth_p"][idx[sel]], axis=1)
+
+
+def quat_angle(q1, q2):
+    """Rotation angle (rad) between unit quaternions, row by row."""
+    w = np.abs(np.sum(q1 * q2, axis=-1))
+    v = np.linalg.norm(q1[..., :1] * q2[..., 1:] - q2[..., :1] * q1[..., 1:]
+                       - np.cross(q1[..., 1:], q2[..., 1:]), axis=-1)
+    return 2.0 * np.arctan2(v, w)
+
+
+def compare_estimator(got, ref, att_atol=TRAJ_ATT_ATOL):
+    """Hold a run of the port's ``Estimator`` (``feed`` log +
+    ``summarize``) against the JAX run of the fixture: the event log
+    (engine state, nodes, keyframes, landmark slots, rounds), node times
+    and keyframe flags after every event, and per round the LM's accepted
+    steps and iterations and the culling counts must be identical; the
+    trajectory must agree within TRAJ_POS_ATOL and ``att_atol``. Raises
+    on a difference; returns (max position error m, max attitude error
+    rad)."""
+    check(got["log"].shape == ref["log"].shape and np.array_equal(got["log"], ref["log"]),
+          "event log (state, nodes, keyframes, landmark slots, rounds) differs from JAX")
+    check(np.array_equal(got["log_node_t"], ref["log_node_t"], equal_nan=True),
+          "node times differ from JAX")
+    check(np.array_equal(got["log_node_kf"], ref["log_node_kf"]), "keyframe flags differ")
+    cols = [STATS_KEYS.index(k) for k in STATS_KEYS if k not in ("cost0", "cost1", "reproj_rms")]
+    check(np.array_equal(got["stats"][:, cols], ref["stats"][:, cols]),
+          "per-round LM steps, iterations or culling counts differ from JAX")
+    dp = float(np.max(np.linalg.norm(got["traj_p"] - ref["traj_p"], axis=1)))
+    dq = float(np.max(quat_angle(got["traj_q"], ref["traj_q"])))
+    check(dp <= TRAJ_POS_ATOL, f"trajectory positions {dp:.3g} m from JAX (> {TRAJ_POS_ATOL})")
+    check(dq <= att_atol, f"trajectory attitudes {dq:.3g} rad from JAX (> {att_atol})")
+    return dp, dq
 
 
 def make_frames(n):
@@ -420,29 +579,152 @@ def phase_round(dev):
         + f", round {sum(ms.values()):.2f}")
 
 
+def run_estimator(s, dev, **overrides):
+    """The port's ``Estimator`` (the scenario's configuration with
+    ``overrides``) fed the scenario's ideal tracks on ``dev``:
+    (estimator, feed log + summary)."""
+    import torch
+
+    from ic_gvins_tpu_torch.engine import config as tconfig
+    from ic_gvins_tpu_torch.engine.estimator import Estimator
+
+    est = Estimator(engine_config(tconfig, s, **overrides), device=dev)
+    if "ext_p" in s:  # the scenario's camera, set on the window as the JAX tests do
+        est.window = est.window._replace(ext_p=torch.as_tensor(s["ext_p"], device=dev),
+                                         ext_q=torch.as_tensor(s["ext_q"], device=dev))
+    log = feed(est, est, s, lambda j: est.add_frame_observations(*observations(s, j)))
+    return est, {**log, **summarize(est)}
+
+
+def run_pipeline(s, dev, use_clahe, **overrides):
+    """The port's ``Pipeline`` (the scenario's configuration with
+    ``overrides``) fed the scenario's IMU, GNSS and frames that the sprite
+    renderer draws with the configured camera at the truth camera poses:
+    (pipeline, feed log + summary, frames the KLT tracked)."""
+    from ic_gvins_tpu_torch.data.simulator import render_sprite_frame_np
+    from ic_gvins_tpu_torch.engine import config as tconfig
+    from ic_gvins_tpu_torch.engine.pipeline import Pipeline
+
+    cfg = engine_config(tconfig, s, **overrides)
+    pipe = Pipeline(cfg, device=dev, use_clahe=use_clahe)
+    fe, tracked = pipe.frontend, [0]
+
+    def on_frame(j):
+        tracked[0] += int(fe.prev_pyr is not None and fe.valid.any())
+        img = render_sprite_frame_np(cfg.cam.intrinsic, cfg.cam.resolution, s["sprites"],
+                                     s["cam_t_wc"][j], s["cam_q_wc"][j])
+        pipe.add_image(float(s["frame_t"][j]), img)
+
+    log = feed(pipe, pipe.est, s, on_frame)
+    return pipe, {**log, **summarize(pipe.est)}, tracked[0]
+
+
+def stage_line(est, seconds, data_s):
+    ms = {k: float(np.median(v)) if v else float("nan") for k, v in est.stage_ms.items()}
+    return (f"median ms per call: preintegrate {ms['preintegrate']:.2f} "
+            f"({len(est.stage_ms['preintegrate'])} calls), optimize {ms['optimize']:.2f} "
+            f"({len(est.stage_ms['optimize'])}), marginalize {ms['marginalize']:.2f} "
+            f"({len(est.stage_ms['marginalize'])}); wall {seconds:.1f} s for {data_s:.1f} s "
+            f"of data ({seconds / data_s:.3f} s per s)")
+
+
+def phase_estimator(dev):
+    """Phase 5: the full-width Estimator on the defaults fixture's streams
+    against the JAX run stored beside them."""
+    import torch
+
+    fx = dict(np.load(ESTIMATOR_FIXTURE))
+    s = scenario(fx, "defaults")
+    ref = {k[4:]: v for k, v in s.items() if k.startswith("out/")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est, got = run_estimator(s, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cfg = est.cfg
+    dp, dq = compare_estimator(got, ref, CARD_TRAJ_ATT_ATOL)
+    e = trajectory_errors(got["traj_t"], got["traj_p"], s, 5.0)
+    log(f"phase 5 estimator ({cfg.max_nodes} nodes x {cfg.max_landmarks} landmarks, f64, "
+        f"{cfg.optimize_num_iterations} iters, window {cfg.optimize_windows_size}): "
+        f"{len(got['stats'])} rounds, {int(got['log'][-1, 2])} keyframes, peak landmark slots "
+        f"{int(got['log'][:, 3].max())}, final state {est.state}; identical to JAX in events, "
+        f"node times, keyframes, LM steps; trajectory vs JAX {dp:.3g} m (<= {TRAJ_POS_ATOL}), "
+        f"{dq:.3g} rad (<= {CARD_TRAJ_ATT_ATOL}); "
+        f"ATE {np.sqrt(np.mean(e ** 2)):.4f} m (JAX {float(ref['ate_rmse']):.4f})")
+    log("phase 5 " + stage_line(est, wall, float(s["imu_t"][-1])))
+
+
+def phase_pipeline(dev):
+    """Phase 6: the full-width Pipeline on 1278 x 1022 frames rendered at
+    the defaults fixture's truth camera poses (pinhole: no distortion)."""
+    import torch
+
+    from ic_gvins_tpu_torch.engine.estimator import TRACKING_NORMAL
+    from ic_gvins_tpu_torch.vision import klt_cuda
+
+    fx = dict(np.load(ESTIMATOR_FIXTURE))
+    s = scenario(fx, "defaults")
+    klt_cuda.lk_track_bidirectional.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the renderer draws a pinhole: no distortion
+    pipe, got, tracked = run_pipeline(s, dev, use_clahe=True,
+                                      cam={"distortion": (0.0, 0.0, 0.0, 0.0)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = klt_cuda.lk_track_bidirectional.launches
+    est = pipe.est
+    e = trajectory_errors(got["traj_t"], got["traj_p"], s, PIPELINE_T_MIN)
+    ate = float(np.sqrt(np.mean(e ** 2)))
+    fm = np.asarray(pipe.frame_ms)
+    log(f"phase 6 pipeline ({len(s['frame_t'])} frames of {est.cfg.cam.resolution[0]}x"
+        f"{est.cfg.cam.resolution[1]}, {est.cfg.track_max_features} features, CLAHE, "
+        f"FM-RANSAC): final state {est.state} (>= {TRACKING_NORMAL}), {est.n_keyframes} "
+        f"keyframes in the window, {len(est.lm_slot)} landmark slots, {len(got['stats'])} "
+        f"rounds; KLT launches {launches} for {tracked} tracked frames; ATE after "
+        f"{PIPELINE_T_MIN:.0f} s {ate:.4f} m (< {PIPELINE_ATE}), max {e.max():.4f} m")
+    log(f"phase 6 front end ms per frame: first {fm[0]:.2f}, median {np.median(fm[1:]):.2f}, "
+        f"max {fm[1:].max():.2f}; " + stage_line(est, wall, float(s["imu_t"][-1])))
+    check(est.state == TRACKING_NORMAL, "the pipeline did not reach TRACKING_NORMAL")
+    check(est.n_keyframes >= 2 and len(est.lm_slot) >= 10, "too few keyframes or landmarks")
+    check(tracked > 0 and launches == tracked, "the KLT kernel was not launched once per "
+          "tracked frame")
+    check(ate < PIPELINE_ATE, f"pipeline ATE {ate:.3f} m >= {PIPELINE_ATE}")
+    return launches
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(ROOT, "ic_gvins_tpu_torch")) or not os.path.exists(FIXTURE):
+    if not os.path.isdir(os.path.join(ROOT, "ic_gvins_tpu_torch")) or not all(
+            os.path.exists(f) for f in (FIXTURE, ESTIMATOR_FIXTURE)):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from ic_gvins_tpu_torch.vision import klt_cuda
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     phase_build()
     frames = make_frames(N_FRAMES)
     klt_stats = phase_klt(frames, dev)
     phase_preprocess(frames, dev)
 
-    klt_cuda.lk_track_bidirectional.launches = 0  # count the main path only
+    # each path of the main path with the launch counts set to 0 just
+    # before it and read just after; the KLT lies on phases 3 and 6
+    klt_cuda.lk_track_bidirectional.launches = 0
     phase_frontend(frames, dev)
+    launches_frontend = klt_cuda.lk_track_bidirectional.launches
+    check(launches_frontend > 0, "the front end never launched the KLT kernel")
     phase_round(dev)
-    launches = klt_cuda.lk_track_bidirectional.launches
-    check(launches > 0, "the front end never launched the KLT kernel")
+    phase_estimator(dev)
+    launches_pipeline = phase_pipeline(dev)
+    launches = launches_frontend + launches_pipeline
+    log(f"klt launches: frontend {launches_frontend}, pipeline {launches_pipeline}")
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s, the build included")
 
     print(json.dumps({"kernels": [{
         "name": "klt_bidirectional", "route": "cuda",

@@ -34,6 +34,10 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
 
 
+def quat_identity(dtype=torch.float64, device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
@@ -53,9 +57,13 @@ def quat_mul(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
+
+
 def quat_inv(q: torch.Tensor) -> torch.Tensor:
     """Inverse of a unit quaternion (its conjugate)."""
-    return torch.cat([q[..., :1], -q[..., 1:]], -1)
+    return quat_conj(q)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -125,6 +133,53 @@ def quat_to_rotvec(q: torch.Tensor) -> torch.Tensor:
         small, 2.0 / torch.clamp(w, min=_SMALL_ANGLE), angle / safe_vn
     )
     return scale[..., None] * q[..., 1:]
+
+
+def rotvec_to_matrix(rv: torch.Tensor) -> torch.Tensor:
+    return quat_to_matrix(rotvec_to_quat(rv))
+
+
+def matrix_to_rotvec(m: torch.Tensor) -> torch.Tensor:
+    return quat_to_rotvec(matrix_to_quat(m))
+
+
+def matrix_to_euler(m: torch.Tensor) -> torch.Tensor:
+    """DCM (body->nav, front-right-down) -> [roll, pitch, yaw], ZYX order,
+    yaw wrapped to [0, 2*pi), with the gimbal-lock branches."""
+    pitch = torch.atan2(-m[..., 2, 0], torch.sqrt(m[..., 2, 1] ** 2 + m[..., 2, 2] ** 2))
+    roll = torch.atan2(m[..., 2, 1], m[..., 2, 2])
+    yaw_normal = torch.atan2(m[..., 1, 0], m[..., 0, 0])
+    yaw_lock_lo = torch.atan2(m[..., 1, 2] - m[..., 0, 1], m[..., 0, 2] + m[..., 1, 1])
+    yaw_lock_hi = torch.pi + torch.atan2(m[..., 1, 2] + m[..., 0, 1],
+                                         m[..., 0, 2] - m[..., 1, 1])
+    yaw = torch.where(m[..., 2, 0] <= -0.999, yaw_lock_lo,
+                      torch.where(m[..., 2, 0] >= 0.999, yaw_lock_hi, yaw_normal))
+    yaw = torch.where(yaw < 0, 2.0 * torch.pi + yaw, yaw)
+    return torch.stack([roll, pitch, yaw], -1)
+
+
+def euler_to_matrix(euler: torch.Tensor) -> torch.Tensor:
+    """[roll, pitch, yaw] -> DCM body->nav (ZYX composition Rz @ Ry @ Rx)."""
+    r, p, y = euler.unbind(-1)
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack(
+        [
+            torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], -1),
+            torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], -1),
+            torch.stack([-sp, cp * sr, cp * cr], -1),
+        ],
+        -2,
+    )
+
+
+def euler_to_quat(euler: torch.Tensor) -> torch.Tensor:
+    return matrix_to_quat(euler_to_matrix(euler))
+
+
+def quat_to_euler(q: torch.Tensor) -> torch.Tensor:
+    return matrix_to_euler(quat_to_matrix(q))
 
 
 def quat_left(q: torch.Tensor) -> torch.Tensor:

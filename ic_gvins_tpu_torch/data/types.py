@@ -30,6 +30,18 @@ class NavState(NamedTuple):
     bg: torch.Tensor  # [..., 3] gyro bias (rad/s)
     ba: torch.Tensor  # [..., 3] accel bias (m/s^2)
 
+    def index(self, i) -> "NavState":
+        """The state(s) at index ``i`` of the leading axis."""
+        return NavState(*(x[i] for x in self))
+
+
+class Gnss(NamedTuple):
+    """A GNSS fix already converted to the local n-frame."""
+
+    time: torch.Tensor
+    p: torch.Tensor  # [..., 3] position in the local n-frame
+    std: torch.Tensor  # [..., 3] per-axis std (m)
+
 
 class IntegrationParams(NamedTuple):
     """IMU noise model + environment."""

@@ -1,8 +1,9 @@
 """The device stages of one GVINS keyframe round, for a window whose
-intervals' raw IMU is at hand (the counterpart of the estimator's calls
-into ``preintegrate``, ``triangulate_checked``, ``optimize_impl`` and
-``marginalize_and_slide``; the estimator's host bookkeeping is not ported
-yet).
+intervals' raw IMU is at hand: the estimator's calls into
+``preintegrate``, ``triangulate_checked``, ``optimize_impl`` and
+``marginalize_and_slide`` batched over a whole window, without its host
+bookkeeping (``engine/estimator.py``), so that one round can be timed and
+held against the JAX package alone.
 
 ``preintegrate_window`` integrates every interval from its start node in
 one batched pass; ``triangulate_window`` re-triangulates each valid

@@ -7,6 +7,9 @@ factor anchored at node 0. Anchored landmarks form a diagonal block
 (eliminated by a divide), then node 0 is one 15x15 Jacobi-scaled block
 elimination with a relative eigenvalue gate. The prior stays a quadratic
 form (H, g) around the linearization snapshot.
+
+``remove_node`` and ``insert_node`` shift the window and the prior's node
+block around one interior node (second-new keyframes, late GNSS fixes).
 """
 
 import torch
@@ -105,9 +108,16 @@ def _roll1(x, dim=0):
     return torch.roll(x, -1, dims=dim)
 
 
-def _roll_tree(x):
-    """Roll every leaf of a (nested) NamedTuple left by one."""
-    return type(x)(*map(_roll_tree, x)) if isinstance(x, tuple) else _roll1(x)
+def _map_tree(fn, x):
+    """Apply ``fn`` to every leaf of a (nested) NamedTuple."""
+    return type(x)(*(_map_tree(fn, v) for v in x)) if isinstance(x, tuple) else fn(x)
+
+
+def _node_dx(x, N, fn):
+    """Apply ``fn`` to the [..., N, 15] node block of the last axis."""
+    n15 = N * NODE_DOF
+    node = fn(x[..., :n15].reshape(x.shape[:-1] + (N, NODE_DOF)))
+    return torch.cat([node.reshape(x.shape[:-1] + (n15,)), x[..., n15:]], -1)
 
 
 def _roll_clear(x, dim=0, fill=False):
@@ -121,14 +131,13 @@ def slide_window(window: Window, prior: Prior):
     """Roll everything left by one node, clear the freed slots and remap
     the prior's node block and linearization snapshot."""
     N = window.n_nodes
-    n15 = N * NODE_DOF
     ref = window.lm_ref
     lm_dead = (ref == 0) & window.lm_valid
     win = window._replace(
-        nodes=_roll_tree(window.nodes),
+        nodes=_map_tree(_roll1, window.nodes),
         node_valid=_roll_clear(window.node_valid),
         node_is_kf=_roll_clear(window.node_is_kf),
-        preint=_roll_tree(window.preint),
+        preint=_map_tree(_roll1, window.preint),
         preint_valid=_roll_clear(window.preint_valid),
         gnss_p=_roll1(window.gnss_p),
         gnss_std=_roll1(window.gnss_std),
@@ -144,14 +153,12 @@ def slide_window(window: Window, prior: Prior):
 
     def roll_dx(x):
         """Roll the node block of the last axis; freed node dims become 0."""
-        node = x[..., :n15].reshape(x.shape[:-1] + (N, NODE_DOF))
-        node = _roll_clear(node, node.dim() - 2, 0.0)
-        return torch.cat([node.reshape(x.shape[:-1] + (n15,)), x[..., n15:]], -1)
+        return _node_dx(x, N, lambda node: _roll_clear(node, node.dim() - 2, 0.0))
 
     pr = prior._replace(
         H=roll_dx(roll_dx(prior.H).T).T,
         g=roll_dx(prior.g),
-        lin_nodes=_roll_tree(prior.lin_nodes),
+        lin_nodes=_map_tree(_roll1, prior.lin_nodes),
     )
     return win, pr
 
@@ -161,3 +168,108 @@ def marginalize_and_slide(window: Window, prior: Prior, cfg, params,
     """Full marginalization round: build the new prior, then slide."""
     return slide_window(window, marginalize_node0(window, prior, cfg, params,
                                                   forgetting))
+
+
+def _set(x, i, value):
+    y = x.clone()
+    y[i] = value
+    return y
+
+
+def remove_node(window: Window, prior: Prior, i: int, n_active: int):
+    """Drop interior or tail time node ``i`` (< ``n_active``), shifting the
+    nodes above it down one slot. Preintegration slot ``i-1`` then spans
+    node ``i-1`` -> old node ``i+1`` and must be re-preintegrated by the
+    caller. Landmarks anchored at node ``i`` die, later anchors shift
+    down, and the prior loses node ``i``'s rows and columns. Freed slots
+    take a copy of the last entry, not zeros: masked slots are still
+    evaluated, and a zero quaternion or covariance would make NaNs."""
+    assert 0 < i < n_active
+
+    def drop(x):
+        return torch.cat([x[:i], x[i + 1:], x[-1:]], 0)
+
+    j = i if i < n_active - 1 else i - 1  # the interval that goes
+
+    def drop_pre(x):
+        return torch.cat([x[:j], x[j + 1:], x[-1:]], 0)
+
+    preint_valid = _set(drop_pre(window.preint_valid), -1, False)
+    if i >= n_active - 1:
+        preint_valid[i - 1] = False
+
+    def drop_col(x):
+        return torch.cat([x[:, :i], x[:, i + 1:], torch.zeros_like(x[:, :1])], 1)
+
+    lm_dead = (window.lm_ref == i) & window.lm_valid
+    win = window._replace(
+        nodes=_map_tree(drop, window.nodes),
+        node_valid=_set(drop(window.node_valid), -1, False),
+        node_is_kf=_set(drop(window.node_is_kf), -1, False),
+        preint=_map_tree(drop_pre, window.preint), preint_valid=preint_valid,
+        gnss_p=drop(window.gnss_p), gnss_std=drop(window.gnss_std),
+        gnss_std_base=drop(window.gnss_std_base),
+        gnss_valid=_set(drop(window.gnss_valid), -1, False),
+        frame_td=drop(window.frame_td),
+        obs_uv=drop_col(window.obs_uv), obs_vel=drop_col(window.obs_vel),
+        obs_valid=drop_col(window.obs_valid) & ~lm_dead[:, None],
+        lm_valid=window.lm_valid & ~lm_dead,
+        lm_ref=torch.where(window.lm_ref > i, window.lm_ref - 1, window.lm_ref),
+    )
+
+    N = window.n_nodes
+
+    def drop_dx(x):
+        return _node_dx(x, N, lambda node: torch.cat(
+            [node[..., :i, :], node[..., i + 1:, :], torch.zeros_like(node[..., :1, :])], -2))
+
+    pr = prior._replace(H=drop_dx(drop_dx(prior.H).T).T, g=drop_dx(prior.g),
+                        lin_nodes=_map_tree(drop, prior.lin_nodes))
+    return win, pr
+
+
+def insert_node(window: Window, prior: Prior, i: int, n_active: int):
+    """Open a free slot at node index ``i`` (0 < i <= n_active < capacity),
+    shifting nodes i.. up by one. The caller fills the slot: node state,
+    GNSS fields and both preintegrations around it (slots ``i-1`` and
+    ``i``, left invalid here). Landmark anchors at or after ``i`` move up;
+    observation columns shift with their nodes. The new slot holds a copy
+    of entry ``i-1``, finite and masked until filled."""
+    assert 0 < i <= n_active < window.n_nodes
+
+    def ins(x):
+        return torch.cat([x[:i], x[i - 1:i], x[i:-1]], 0)
+
+    def ins_pre(x):
+        return torch.cat([x[:i - 1], x[i - 2:i - 1] if i >= 2 else x[:1], x[i - 1:-1]], 0)
+
+    preint_valid = ins_pre(window.preint_valid)
+    preint_valid[i - 1] = False
+    preint_valid[i] = False
+
+    def ins_col(x):
+        return torch.cat([x[:, :i], torch.zeros_like(x[:, :1]), x[:, i:-1]], 1)
+
+    win = window._replace(
+        nodes=_map_tree(ins, window.nodes),
+        node_valid=_set(ins(window.node_valid), i, True),
+        node_is_kf=_set(ins(window.node_is_kf), i, False),
+        preint=_map_tree(ins_pre, window.preint), preint_valid=preint_valid,
+        gnss_p=ins(window.gnss_p), gnss_std=ins(window.gnss_std),
+        gnss_std_base=ins(window.gnss_std_base),
+        gnss_valid=_set(ins(window.gnss_valid), i, False),
+        frame_td=ins(window.frame_td),
+        obs_uv=ins_col(window.obs_uv), obs_vel=ins_col(window.obs_vel),
+        obs_valid=ins_col(window.obs_valid),
+        lm_ref=torch.where(window.lm_ref >= i, window.lm_ref + 1, window.lm_ref),
+    )
+
+    N = window.n_nodes
+
+    def ins_dx(x):
+        return _node_dx(x, N, lambda node: torch.cat(
+            [node[..., :i, :], torch.zeros_like(node[..., :1, :]), node[..., i:-1, :]], -2))
+
+    pr = prior._replace(H=ins_dx(ins_dx(prior.H).T).T, g=ins_dx(prior.g),
+                        lin_nodes=_map_tree(ins, prior.lin_nodes))
+    return win, pr

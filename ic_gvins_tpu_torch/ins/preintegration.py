@@ -2,8 +2,8 @@
 
 One code path covers the NORMAL and EARTH variants: every Earth term
 vanishes when ``iewn == 0``. Every function batches over leading axes, so
-all intervals of a window integrate together: the loop runs over the IMU
-samples, the tensor ops over the intervals.
+all intervals of a window integrate together, and the samples of an
+interval are processed together too (prefix scans in log2(n) rounds).
 
 Error-state ordering (15): [dp 0:3, dv 3:6, dtheta 6:9, dbg 9:12, dba 12:15],
 noise ordering (12): [gyro white, accel white, gyro bias RW, accel bias RW].
@@ -49,6 +49,36 @@ def noise_psd(params: IntegrationParams, dtype=None) -> torch.Tensor:
     return torch.diag(d.to(dtype) if dtype is not None else d)
 
 
+def _scan(op, x, dim):
+    """Inclusive prefix of ``x`` along ``dim`` under the associative
+    ``op(earlier, later)``, in log2(n) batched rounds (Hillis-Steele)."""
+    n, d = x.shape[dim], 1
+    while d < n:
+        x = torch.cat([x.narrow(dim, 0, d),
+                       op(x.narrow(dim, 0, n - d), x.narrow(dim, d, n - d))], dim)
+        d *= 2
+    return x
+
+
+def _compose_tree(phi, qk):
+    """(J, P) of the recursions J <- Phi J, P <- Phi P Phi^T + Q over the
+    steps (axis -3), composed pairwise in a log-depth tree padded to a
+    power of two with the identity step, as the JAX package does."""
+    n = phi.shape[-3]
+    n_pow2 = 1 << (n - 1).bit_length() if n > 1 else 1
+    if n_pow2 != n:
+        pad = phi.shape[:-3] + (n_pow2 - n, 15, 15)
+        eye = torch.eye(15, dtype=phi.dtype, device=phi.device).expand(pad)
+        phi = torch.cat([phi, eye], -3)
+        qk = torch.cat([qk, torch.zeros(pad, dtype=qk.dtype, device=qk.device)], -3)
+    while phi.shape[-3] > 1:
+        pa, pb = phi[..., 0::2, :, :], phi[..., 1::2, :, :]
+        qa, qb = qk[..., 0::2, :, :], qk[..., 1::2, :, :]
+        phi = pb @ pa
+        qk = pb @ qa @ pb.transpose(-1, -2) + qb
+    return phi[..., 0, :, :], qk[..., 0, :, :]
+
+
 def preintegrate(
     params: IntegrationParams, state0: NavState, imu: ImuSeq
 ) -> PreintData:
@@ -59,103 +89,104 @@ def preintegrate(
     samples (dt = dtheta = dvel = 0) are no-ops. ``state0`` fields carry
     the same leading axes as ``imu.dt[..., 0]``.
 
-    The Jacobian and covariance follow the sequential recursions
-    J <- Phi J and P <- Phi P Phi^T + Q; the JAX package composes the same
-    per-step (Phi, Q) pairs in a log-depth tree, which only reorders the
-    products.
+    The recursions of the JAX package's per-sample scan run over all
+    samples at once: the attitude chains are prefix products of
+    quaternions, the velocity (with its Coriolis term) a prefix of affine
+    maps, positions and deltas cumulative sums, each in log2(n) batched
+    rounds; the Jacobian and covariance compose in the JAX package's
+    pairwise tree. Only the association order of the sums and products
+    differs from a sequential loop.
     """
     p0 = state0.p
     dtype, dev = p0.dtype, p0.device
     batch = p0.shape[:-1]
+    n = imu.dt.shape[-1] - 1  # integration steps
     noise = noise_psd(params, dtype)
     eye3 = _eye(3, p0)
-    q0 = state0.q
-    q0_inv = rot.quat_inv(q0)
+    q0, q0_inv = state0.q, rot.quat_inv(state0.q)
     iewn = params.iewn.to(dtype)
     gravity = params.gravity.to(dtype)
     corr_time = params.corr_time.to(dtype)
+    step = lambda x: x[..., None, :]  # noqa: E731  state -> [..., 1, k]
 
-    gt = torch.zeros(batch + (15, 12), dtype=dtype, device=dev)
+    dth_all, dv_all = compensate_bias(imu.dtheta, imu.dvel, imu.dt,
+                                      step(state0.bg), step(state0.ba))
+    dth_cur, dv_cur = dth_all[..., 1:, :], dv_all[..., 1:, :]
+    dvfb, dtheta = coning_sculling(dth_all[..., :-1, :], dv_all[..., :-1, :],
+                                   dth_cur, dv_cur)
+    dt = imu.dt[..., 1:]
+    dt1 = dt[..., None]
+    t_new = torch.cumsum(dt, -1)
+    qid = torch.zeros(batch + (1, 4), dtype=dtype, device=dev)
+    qid[..., 0] = 1.0
+
+    # attitude chains: dq_k = e_1 ... e_k and q_k = qnn_k ... qnn_1 q0 dq_k
+    e = rot.rotvec_to_quat(dtheta)
+    dq_all = rot.quat_normalize(_scan(rot.quat_mul, e, -2))
+    qnn = rot.rotvec_to_quat(-iewn * dt1)
+    left = _scan(lambda a, b: rot.quat_mul(b, a), qnn, -2)
+    q_all = rot.quat_normalize(rot.quat_mul(left, rot.quat_mul(step(q0), dq_all)))
+    q_prev = torch.cat([step(q0), q_all[..., :-1, :]], -2)
+    dq_prev = torch.cat([qid, dq_all[..., :-1, :]], -2)
+
+    # continuous absolute state: v_k = (I - 2 dt [iewn]x) v_{k-1} + c_k
+    body_dv = rot.quat_rotate(q_prev, dvfb)
+    c = 0.5 * (body_dv + rot.quat_rotate(qnn, body_dv)) + gravity * dt1
+    aff = torch.zeros(batch + (n, 4, 4), dtype=dtype, device=dev)
+    aff[..., :3, :3] = eye3 - 2.0 * dt1[..., None] * rot.skew(iewn)
+    aff[..., :3, 3] = c
+    aff[..., 3, 3] = 1.0
+    aff = _scan(lambda a, b: b @ a, aff, -3)
+    v_all = rot.mv(aff[..., :3, :3], step(state0.v)) + aff[..., :3, 3]
+    v_prev = torch.cat([step(state0.v), v_all[..., :-1, :]], -2)
+    dvel_abs = c - 2.0 * rot.cross(iewn, v_prev) * dt1
+    p_all = step(p0) + torch.cumsum(dt1 * v_prev + 0.5 * dt1 * dvel_abs, -2)
+
+    # delta (preintegrated) state, mid-interval Earth compensation
+    qmid = rot.rotvec_to_quat(-iewn * (t_new - 0.5 * dt)[..., None])
+    q_comp = rot.quat_mul(step(q0_inv),
+                          rot.quat_mul(qmid, rot.quat_mul(step(q0), dq_prev)))
+    dvel_d = rot.quat_rotate(q_comp, dvfb)
+    dv_all = torch.cumsum(dvel_d, -2)
+    dv_prev = dv_all - dvel_d
+    dp_all = torch.cumsum(dt1 * dv_prev + 0.5 * dt1 * dvel_d, -2)
+
+    # transition + noise of every step
+    qend = rot.rotvec_to_quat(-iewn * t_new[..., None])
+    cbb0 = -rot.quat_to_matrix(
+        rot.quat_mul(step(q0_inv), rot.quat_mul(qend, rot.quat_mul(step(q0), dq_all))))
+    dt2 = dt1[..., None]
+    decay = eye3 * (1.0 - dt2 / corr_time)
+    phi = torch.zeros(batch + (n, 15, 15), dtype=dtype, device=dev)
+    phi[..., 0:3, 0:3] = eye3
+    phi[..., 0:3, 3:6] = eye3 * dt2
+    phi[..., 3:6, 3:6] = eye3
+    phi[..., 3:6, 6:9] = cbb0 @ rot.skew(dv_cur)
+    phi[..., 3:6, 12:15] = cbb0 * dt2
+    phi[..., 6:9, 6:9] = eye3 - rot.skew(dth_cur)
+    phi[..., 6:9, 9:12] = -eye3 * dt2
+    phi[..., 9:12, 9:12] = decay
+    phi[..., 12:15, 12:15] = decay
+    gt = torch.zeros(batch + (n, 15, 12), dtype=dtype, device=dev)
+    gt[..., 3:6, 3:6] = cbb0
     gt[..., 6:9, 0:3] = -eye3
     gt[..., 9:12, 6:9] = eye3
     gt[..., 12:15, 9:12] = eye3
+    gng = gt @ noise @ gt.transpose(-1, -2)
+    qk = 0.5 * dt2 * (phi @ gng + gng @ phi.transpose(-1, -2))
+    J, P = _compose_tree(phi, qk)
 
-    p, v, q = state0.p, state0.v, state0.q
-    dp = torch.zeros(batch + (3,), dtype=dtype, device=dev)
-    dv = torch.zeros_like(dp)
-    dq = torch.zeros(batch + (4,), dtype=dtype, device=dev)
-    dq[..., 0] = 1.0
-    sum_dt_pn = torch.zeros_like(dp)
-    t_acc = torch.zeros(batch, dtype=dtype, device=dev)
-    J = torch.eye(15, dtype=dtype, device=dev).expand(batch + (15, 15))
-    P = torch.zeros(batch + (15, 15), dtype=dtype, device=dev)
-    prev = compensate_bias(
-        imu.dtheta[..., 0, :], imu.dvel[..., 0, :], imu.dt[..., 0],
-        state0.bg, state0.ba,
-    )
-
-    for k in range(1, imu.dt.shape[-1]):
-        dt = imu.dt[..., k]
-        dt1 = dt[..., None]
-        dth_cur, dv_cur = compensate_bias(
-            imu.dtheta[..., k, :], imu.dvel[..., k, :], dt, state0.bg, state0.ba
-        )
-        dvfb, dtheta = coning_sculling(prev[0], prev[1], dth_cur, dv_cur)
-        t_new = t_acc + dt
-
-        # continuous absolute state
-        dv_cor_g = (gravity - 2.0 * rot.cross(iewn.expand_as(v), v)) * dt1
-        qnn = rot.rotvec_to_quat(-iewn * dt1)
-        body_dv = rot.quat_rotate(q, dvfb)
-        dvel_abs = 0.5 * (body_dv + rot.quat_rotate(qnn, body_dv)) + dv_cor_g
-        p_new = p + dt1 * v + 0.5 * dt1 * dvel_abs
-        v = v + dvel_abs
-        q = rot.quat_normalize(
-            rot.quat_mul(qnn, rot.quat_mul(q, rot.rotvec_to_quat(dtheta)))
-        )
-        p = p_new
-        sum_dt_pn = sum_dt_pn + dt1 * p_new
-
-        # delta (preintegrated) state, mid-interval Earth compensation
-        qmid = rot.rotvec_to_quat(-iewn * (t_new - 0.5 * dt)[..., None])
-        q_comp = rot.quat_mul(q0_inv, rot.quat_mul(qmid, rot.quat_mul(q0, dq)))
-        dvel_d = rot.quat_rotate(q_comp, dvfb)
-        dp = dp + dt1 * dv + 0.5 * dt1 * dvel_d
-        dv = dv + dvel_d
-        dq = rot.quat_normalize(rot.quat_mul(dq, rot.rotvec_to_quat(dtheta)))
-
-        # transition + noise of this step
-        qend = rot.rotvec_to_quat(-iewn * t_new[..., None])
-        cbb0 = -rot.quat_to_matrix(
-            rot.quat_mul(q0_inv, rot.quat_mul(qend, rot.quat_mul(q0, dq)))
-        )
-        dt2 = dt[..., None, None]
-        decay = eye3 * (1.0 - dt2 / corr_time)
-        phi = torch.zeros(batch + (15, 15), dtype=dtype, device=dev)
-        phi[..., 0:3, 0:3] = eye3
-        phi[..., 0:3, 3:6] = eye3 * dt2
-        phi[..., 3:6, 3:6] = eye3
-        phi[..., 3:6, 6:9] = cbb0 @ rot.skew(dv_cur)
-        phi[..., 3:6, 12:15] = cbb0 * dt2
-        phi[..., 6:9, 6:9] = eye3 - rot.skew(dth_cur)
-        phi[..., 6:9, 9:12] = -eye3 * dt2
-        phi[..., 9:12, 9:12] = decay
-        phi[..., 12:15, 12:15] = decay
-        gt[..., 3:6, 3:6] = cbb0
-        gng = gt @ noise @ gt.transpose(-1, -2)
-        qk = 0.5 * dt2 * (phi @ gng + gng @ phi.transpose(-1, -2))
-
-        J = phi @ J
-        P = phi @ P @ phi.transpose(-1, -2) + qk
-        t_acc = t_new
-        prev = (dth_cur, dv_cur)
-
-    end_state = NavState(
-        time=state0.time + t_acc, p=p, q=q, v=v, bg=state0.bg, ba=state0.ba
-    )
+    last = lambda x: x[..., -1, :]  # noqa: E731
+    # the interval's length summed in sample order, as the JAX scan sums
+    # it: a parallel scan on the card rounds otherwise, and node times
+    # feed comparisons (the keyframe interval) that a last bit can flip
+    t_acc = torch.cumsum(dt.cpu(), -1)[..., -1].to(dev)
+    end_state = NavState(time=state0.time + t_acc, p=last(p_all), q=last(q_all),
+                         v=last(v_all), bg=state0.bg, ba=state0.ba)
     return PreintData(
-        dp=dp, dv=dv, dq=dq, jac=J, cov=P, dt=t_acc, sum_dt_pn=sum_dt_pn,
-        bg_ref=state0.bg, ba_ref=state0.ba, end_state=end_state,
+        dp=last(dp_all), dv=last(dv_all), dq=last(dq_all), jac=J, cov=P, dt=t_acc,
+        sum_dt_pn=torch.sum(dt1 * p_all, -2), bg_ref=state0.bg, ba_ref=state0.ba,
+        end_state=end_state,
     )
 
 

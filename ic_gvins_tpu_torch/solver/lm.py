@@ -129,3 +129,28 @@ def optimize_impl(window: Window, prior: Prior, cfg: SolverConfig,
     flags2 = RobustFlags(gnss_kernel=False, reproj_kernel=True)
     window, stats2 = lm_run(window, prior, cfg, params, flags2, it2)
     return window, (stats1, stats2, n_culled)
+
+
+def optimize(window: Window, prior: Prior, cfg: SolverConfig,
+             params: IntegrationParams, iters: int = 20, do_cull: bool = True):
+    """The estimator's optimization round (see :func:`optimize_impl`)."""
+    return optimize_impl(window, prior, cfg, params, iters, do_cull)
+
+
+def optimize_phase1(window: Window, prior: Prior, cfg: SolverConfig,
+                    params: IntegrationParams, iters: int = 20):
+    """Phase 1 alone (robust kernels, then the chi2 gates), so that the
+    two phases can be timed apart. Returns (window, stats1, n_culled)."""
+    window, stats1 = lm_run(window, prior, cfg, params,
+                            RobustFlags(gnss_kernel=True, reproj_kernel=True),
+                            phase_iters(iters)[0])
+    window, n_culled = chi2_cull(window, cfg)
+    return window, stats1, n_culled
+
+
+def optimize_phase2(window: Window, prior: Prior, cfg: SolverConfig,
+                    params: IntegrationParams, iters: int = 20):
+    """Phase 2 alone (GNSS kernel off). Returns (window, stats2)."""
+    return lm_run(window, prior, cfg, params,
+                  RobustFlags(gnss_kernel=False, reproj_kernel=True),
+                  phase_iters(iters)[1])

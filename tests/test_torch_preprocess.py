@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_solver import one_torch_thread  # noqa: F401
 from test_vision import random_texture
 
 from ic_gvins_tpu.vision import preprocess as jpre

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_solver import one_torch_thread  # noqa: F401
+
 from ic_gvins_tpu.vision import ransac as jransac
 from ic_gvins_tpu_torch.vision import ransac as transac
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_solver import CLOSED, ITERATIVE, assert_rel
+from test_torch_solver import CLOSED, ITERATIVE, assert_rel, one_torch_thread  # noqa: F401
 from test_vision import random_texture, shift_image
 
 from __graft_entry__ import _tiny_problem
@@ -251,7 +251,12 @@ def test_port_imports_no_jax():
         "ic_gvins_tpu_torch.engine.keyframe, ic_gvins_tpu_torch.solver.lm, "
         "ic_gvins_tpu_torch.factors.marginalization, ic_gvins_tpu_torch.convert, "
         "ic_gvins_tpu_torch.vision.klt_cuda, ic_gvins_tpu_torch.vision.preprocess, "
-        "ic_gvins_tpu_torch.vision.ransac, ic_gvins_tpu_torch.device\n"
+        "ic_gvins_tpu_torch.vision.ransac, ic_gvins_tpu_torch.device, "
+        "ic_gvins_tpu_torch.engine.estimator, ic_gvins_tpu_torch.engine.pipeline, "
+        "ic_gvins_tpu_torch.engine.config, ic_gvins_tpu_torch.common.earth, "
+        "ic_gvins_tpu_torch.common.angle, ic_gvins_tpu_torch.common.gpstime, "
+        "ic_gvins_tpu_torch.common.logging, ic_gvins_tpu_torch.data.simulator, "
+        "ic_gvins_tpu_torch.ins.mechanization\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ic_gvins_tpu')]\n"
         "assert not bad, bad\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

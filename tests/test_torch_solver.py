@@ -42,6 +42,19 @@ _j_assemble = jax.jit(jasm.assemble_blocks,
                       static_argnames=("include_soft_priors", "gauge_fix"))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """A module's port tests on one intra-op thread (the port test files
+    import this fixture): the suite runs several test processes at once,
+    and torch's default of one thread per core in each oversubscribes the
+    cores (all port tests on 6 workers of an 8-core CPU: 628 s with the
+    default, 155 s with one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_rel(got, want, tol, what=""):
     got = np.asarray(got.detach().cpu() if torch.is_tensor(got) else got, np.float64)
     want = np.asarray(want, np.float64)

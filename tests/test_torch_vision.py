@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_solver import one_torch_thread  # noqa: F401
 from test_vision import make_camera, random_texture
 
 from ic_gvins_tpu.common import rotation as jrot

@@ -1,0 +1,289 @@
+#!/usr/bin/env python
+"""Write the estimator fixtures that the PyTorch port's ``Estimator`` and
+``Pipeline`` are held against: simulated sensor streams and what the JAX
+package's float64 ``Estimator`` (or ``Pipeline``) makes of them on the CPU.
+
+Two files:
+
+* ``tests/fixtures/torch_estimator_small.npz``: the window geometry of
+  ``tests/test_estimator.py::small_cfg`` (16 nodes x 64 landmarks, 10 LM
+  iterations) in that file's three scenarios (GINS 15 s, GVINS 10 s,
+  GNSS outage after 6 s of 12 s), and the 320 x 240 scene of
+  ``tests/test_pipeline.py`` through the JAX ``Pipeline`` (frames from the
+  numpy sprite renderer, so the port can render the same pixels);
+* ``tests/fixtures/torch_estimator_defaults.npz``: ``EngineConfig()`` (24
+  nodes x 192 landmarks, 20 iterations, a 10-keyframe window) on 15 s of a
+  car drive with IMU at 200 Hz, GNSS at 1 Hz and ideal tracks at 10 Hz,
+  plus the truth camera poses and sprite landmarks from which
+  ``chip_smoke.py`` renders 1278 x 1022 frames for the port's ``Pipeline``.
+  The JAX ``Pipeline`` at that size is not run: an XLA:CPU replay of 150
+  full-size frames takes far longer than the rest of the tool.
+
+Each scenario stores its streams, its 200 Hz truth positions, the
+configuration as JSON, and the run's event log (``chip_smoke.feed``), stats
+rows, trajectory and final window (``chip_smoke.summarize``). Each scenario
+runs in its own process (an XLA:CPU process that replays several
+estimators can crash its compiler), all at once.
+
+    python tools/make_torch_estimator_fixture.py            # both files, ~4 min on 8 cores
+    python tools/make_torch_estimator_fixture.py --scenario gins --out /tmp/gins.npz
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
+
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+SMALL = ("gins", "gvins", "outage", "pipeline")
+DEFAULTS = ("defaults",)
+# The JAX runs take their IMU slices from the Python buffer, which the port
+# copies: the C++ buffer computes a boundary sample's dt 1 ulp apart, and at
+# 10 Hz frames the keyframe test ``t - last_kf_t > track_max_interval``
+# (0.5 s) compares numbers that are equal but for such ulps.
+PY_BUFFER = dict(use_native_imu_buffer=False)
+# kwargs of tests/test_estimator.py::small_cfg
+SMALL_CFG = dict(optimize_num_iterations=10, max_nodes=16, max_landmarks=64,
+                 optimize_windows_size=6, antlever=(0.1, -0.05, 0.2), **PY_BUFFER)
+# run_sequence arguments of the three tests of tests/test_estimator.py
+ESTIMATOR_SCENARIOS = {
+    "gins": dict(cfg=SMALL_CFG, duration=15.0, with_vision=False, seed=0),
+    "gvins": dict(cfg=SMALL_CFG, duration=10.0, with_vision=True, seed=0,
+                  frame_rate=5.0, n_landmarks=64),
+    "outage": dict(cfg=SMALL_CFG, duration=12.0, with_vision=True, seed=3, gnss_until=6.0,
+                   frame_rate=5.0, n_landmarks=64),
+    # the engine's defaults; 320 landmarks over the 18 m of road ahead keep
+    # most of the 192 slots in use
+    "defaults": dict(cfg=PY_BUFFER, duration=15.0, with_vision=True, seed=0, frame_rate=10.0,
+                     n_landmarks=320, cam_ext=True),
+}
+# sprite field of chip_smoke.py phase 6 (1278 x 1022 frames, focal 787)
+SPRITES = dict(n=900, lateral=24.0, depth_range=(7.0, 40.0))
+IMU_RATE = 200.0
+
+
+def _jax():
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    return jax
+
+
+def _cfg_json(cfg):
+    d = dataclasses.asdict(cfg)
+    base = dataclasses.asdict(type(cfg)())
+    out = {k: v for k, v in d.items() if v != base[k] and k not in ("cam", "odo", "imumodel")}
+    if d["cam"] != base["cam"]:
+        out["cam"] = d["cam"]
+    return json.dumps(out)
+
+
+def _truth(traj, params, duration):
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from ic_gvins_tpu.data import simulator as sim
+
+    t = np.arange(int(round((duration + 1.0) * IMU_RATE)) + 1) / IMU_RATE
+    p = jax.jit(jax.vmap(lambda tt: sim.truth_state(traj, params, tt).p))(jnp.asarray(t))
+    return {"truth_t": t, "truth_p": np.asarray(p)}
+
+
+def _imu_streams(imu):
+    keep = np.asarray(imu.dt) != 0.0
+    return {"imu_t": np.asarray(imu.time)[keep], "imu_dt": np.asarray(imu.dt)[keep],
+            "imu_dth": np.asarray(imu.dtheta)[keep], "imu_dv": np.asarray(imu.dvel)[keep]}
+
+
+def _cam_poses(traj, params, times, ext_p, ext_q):
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from ic_gvins_tpu.common import rotation as rot
+    from ic_gvins_tpu.data import simulator as sim
+
+    def pose(t):
+        s = sim.truth_state(traj, params, t)
+        return s.p + rot.quat_rotate(s.q, ext_p), rot.quat_mul(s.q, ext_q)
+
+    t_wc, q_wc = jax.jit(jax.vmap(pose))(jnp.asarray(times))
+    return {"cam_t_wc": np.asarray(t_wc), "cam_q_wc": np.asarray(q_wc)}
+
+
+def estimator_scenario(name):
+    """Streams of one scenario of ``tests/test_estimator.py::run_sequence``
+    (the same keys and draws), and the JAX ``Estimator`` run on them."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from ic_gvins_tpu.common import rotation as rot
+    from ic_gvins_tpu.data import simulator as sim
+    from ic_gvins_tpu.engine import config as jconfig
+    from ic_gvins_tpu.engine.estimator import Estimator
+
+    sc = ESTIMATOR_SCENARIOS[name]
+    cfg = jconfig.EngineConfig(**sc["cfg"])
+    duration, seed = sc["duration"], sc["seed"]
+    params = sim.default_params(with_earth=cfg.iswithearth, lat_deg=cfg.track_ref_lat_deg)
+    traj = sim.car_trajectory()
+    key = jax.random.PRNGKey(seed)
+    k_imu, k_gnss, k_lm, k_px = jax.random.split(key, 4)
+    imu = sim.simulate_imu(traj, params, 0.0, duration, IMU_RATE)
+    imu = sim.corrupt_imu(imu, params, k_imu, jnp.array([2e-4, -1e-4, 3e-4]),
+                          jnp.array([5e-3, -8e-3, 2e-3]))
+    gnss = sim.simulate_gnss(traj, params, jnp.asarray(cfg.antlever), 0.0, duration, 1.0,
+                             std=0.05, key=k_gnss)
+    gt = np.asarray(gnss.time)
+    keep = gt <= sc.get("gnss_until", np.inf)
+    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
+         "gnss_t": gt[keep], "gnss_p": np.asarray(gnss.p)[keep],
+         "gnss_std": np.asarray(gnss.std)[keep], **_truth(traj, params, duration)}
+    s["frame_t"] = np.zeros(0)
+    if sc["with_vision"]:
+        if sc.get("cam_ext"):  # the configured camera
+            ext_q = jnp.asarray(cfg.cam.q_b_c) / np.linalg.norm(cfg.cam.q_b_c)
+            ext_p = jnp.asarray(cfg.cam.t_b_c)
+        else:  # run_sequence's camera, set on the window after construction
+            ext_q = rot.matrix_to_quat(
+                jnp.array([[0.0, 0.0, 1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]))
+            ext_p = jnp.array([0.1, 0.0, -0.05])
+            s["ext_p"], s["ext_q"] = np.asarray(ext_p), np.asarray(ext_q)
+        n_frames = int(duration * sc["frame_rate"])
+        ftimes = (jnp.arange(n_frames) + 1) / sc["frame_rate"]
+        lms = sim.scatter_landmarks(traj, params, k_lm, sc["n_landmarks"], 0.0, duration + 3.0)
+        uv, vis = sim.project_landmarks(traj, params, lms, ftimes, ext_p, ext_q,
+                                        noise_std=0.5 / 780.0, key=k_px)
+        uv, vis = np.asarray(uv), np.asarray(vis)
+        ids = [np.nonzero(vis[:, j])[0] for j in range(n_frames)]
+        s.update(frame_t=np.asarray(ftimes, np.float64),
+                 frame_n=np.array([len(i) for i in ids]),
+                 frame_ids=np.concatenate(ids),
+                 frame_uv=np.concatenate([uv[i, j] for j, i in enumerate(ids)]))
+        if name == "defaults":
+            sprites = sim.scatter_landmarks(
+                traj, params, jax.random.fold_in(key, 11), SPRITES["n"], 0.0, duration + 3.0,
+                lateral=SPRITES["lateral"], depth_range=SPRITES["depth_range"])
+            s["sprites"] = np.asarray(sprites)
+            s.update(_cam_poses(traj, params, ftimes, ext_p, ext_q))
+
+    est = Estimator(cfg)
+    if "ext_p" in s:
+        est.window = est.window._replace(ext_p=jnp.asarray(s["ext_p"]),
+                                         ext_q=jnp.asarray(s["ext_q"]))
+
+    def on_frame(j):
+        est.add_frame_observations(*chip_smoke.observations(s, j))
+
+    log = chip_smoke.feed(est, est, s, on_frame)
+    return s, {**log, **chip_smoke.summarize(est)}
+
+
+def pipeline_scenario():
+    """``tests/test_pipeline.py``'s scene (320 x 240, 8 s, frames at 5 Hz
+    from 0.4 s) through the JAX ``Pipeline``, frames from the numpy
+    sprite renderer."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from ic_gvins_tpu.common import rotation as rot
+    from ic_gvins_tpu.data import simulator as sim
+    from ic_gvins_tpu.engine.config import CameraConfig, EngineConfig
+    from ic_gvins_tpu.engine.pipeline import Pipeline
+
+    res, intr = (320, 240), (240.0, 240.0, 160.0, 120.0)
+    ext_q = rot.matrix_to_quat(jnp.array([[0.0, 0.0, 1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]))
+    cfg = EngineConfig(
+        optimize_num_iterations=8, max_nodes=16, max_landmarks=64, optimize_windows_size=6,
+        track_max_features=60, track_min_parallax=12.0, antlever=(0.0, 0.0, 0.0),
+        **PY_BUFFER,
+        cam=CameraConfig(intrinsic=intr, distortion=(0.0, 0.0, 0.0, 0.0), resolution=res,
+                         q_b_c=tuple(float(x) for x in np.asarray(ext_q)),
+                         t_b_c=(0.0, 0.0, 0.0)),
+    )
+    params = sim.default_params(with_earth=True, lat_deg=cfg.track_ref_lat_deg)
+    traj = sim.car_trajectory(speed=5.0)
+    duration = 8.0
+    kl, ki, kg = jax.random.split(jax.random.PRNGKey(0), 3)
+    lms = sim.scatter_landmarks(traj, params, kl, 140, 0.0, duration + 4.0,
+                                lateral=24.0, depth_range=(7.0, 40.0))
+    imu = sim.simulate_imu(traj, params, 0.0, duration, IMU_RATE)
+    imu = sim.corrupt_imu(imu, params, ki, jnp.array([2e-4, -1e-4, 3e-4]),
+                          jnp.array([5e-3, -8e-3, 2e-3]))
+    gnss = sim.simulate_gnss(traj, params, jnp.zeros(3), 0.0, duration, 1.0, std=0.05, key=kg)
+    # test_pipeline.py's frame clock: 0.4 s, then += 0.2 s while IMU lasts
+    ftimes, nf = [], 0.4
+    while nf <= float(imu.time[-1]):
+        ftimes.append(nf)
+        nf += 0.2
+    ftimes = np.asarray(ftimes)
+    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
+         "gnss_t": np.asarray(gnss.time), "gnss_p": np.asarray(gnss.p),
+         "gnss_std": np.asarray(gnss.std), "frame_t": ftimes, "sprites": np.asarray(lms),
+         **_truth(traj, params, duration),
+         **_cam_poses(traj, params, ftimes, jnp.zeros(3), ext_q / jnp.linalg.norm(ext_q))}
+
+    pipe = Pipeline(cfg, use_pallas=False, use_clahe=False)
+
+    def on_frame(j):
+        img = sim.render_sprite_frame_np(intr, res, s["sprites"], s["cam_t_wc"][j],
+                                         s["cam_q_wc"][j])
+        pipe.add_image(float(ftimes[j]), img)
+
+    log = chip_smoke.feed(pipe, pipe.est, s, on_frame)
+    return s, {**log, **chip_smoke.summarize(pipe.est)}
+
+
+# the JAX tests' ATE windows: errors after t_min (s)
+ATE = {"gins": 5.0, "gvins": 5.0, "outage": 10.0, "pipeline": 4.0, "defaults": 5.0}
+
+
+def run_one(name, out):
+    s, o = pipeline_scenario() if name == "pipeline" else estimator_scenario(name)
+    e = chip_smoke.trajectory_errors(o["traj_t"], o["traj_p"], s, ATE[name])
+    o["ate_rmse"], o["err_max"] = np.sqrt(np.mean(e**2)), np.max(e)
+    np.savez_compressed(out, **s, **{f"out/{k}": v for k, v in o.items()})
+    print(f"{name}: {len(o['stats'])} rounds, {int(o['log'][-1, 2])} keyframes, "
+          f"peak landmark slots {int(o['log'][:, 3].max())}, final state "
+          f"{int(o['log'][-1, 0])}, ATE {float(o['ate_rmse']):.4f} m, "
+          f"max {float(o['err_max']):.4f} m", flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scenario", choices=SMALL + DEFAULTS)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if args.scenario:
+        run_one(args.scenario, args.out)
+        return
+    work = tempfile.mkdtemp(prefix="estimator_fixture_")
+    procs = {n: subprocess.Popen([sys.executable, __file__, "--scenario", n, "--out",
+                                  os.path.join(work, n + ".npz")])
+             for n in SMALL + DEFAULTS}
+    bad = [n for n, p in procs.items() if p.wait() != 0]
+    if bad:
+        raise SystemExit(f"scenarios failed: {bad}")
+    for fname, names in (("torch_estimator_small.npz", SMALL),
+                         ("torch_estimator_defaults.npz", DEFAULTS)):
+        merged = {}
+        for n in names:
+            with np.load(os.path.join(work, n + ".npz")) as z:
+                merged.update({f"{n}/{k}": z[k] for k in z.files})
+        path = os.path.join(FIXTURES, fname)
+        np.savez_compressed(path, **merged)
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")
+
+
+if __name__ == "__main__":
+    main()
