@@ -8,9 +8,11 @@ front end (``Frontend.process`` with its defaults: CLAHE, bidirectional
 KLT, FM-RANSAC) over 1278 x 1022 frames with 200 features and a 4-image
 pyramid; one GVINS keyframe round on a 24-node x 192-landmark float64
 window (preintegrate -> triangulate -> ``optimize_impl(iters=20)`` ->
-``marginalize_and_slide``); then the engine as users call it, the
-``Estimator`` on sensor streams and the ``Pipeline`` on camera frames,
-with ``EngineConfig()``. Phases:
+``marginalize_and_slide``); then the engine as users call it: the
+``Estimator`` on sensor streams, the replay command on a recorded drive
+(CSV and PNG files), whose ``Pipeline`` tracks the camera frames, both
+with ``EngineConfig()``, and the ``Estimator`` with the wheel odometer
+and its checkpoints. Phases:
 
 1. the card's name and power limit; build the CUDA kernel (nvcc, sm_90a);
 2. KLT kernel vs its plain PyTorch version at slice shapes (200 features)
@@ -26,30 +28,46 @@ with ``EngineConfig()``. Phases:
    held against the JAX ``Estimator``'s run stored there
    (``tools/make_torch_estimator_fixture.py``): the same events, node
    times, keyframes and LM steps, the trajectory within 1e-6 m / 1e-7 rad;
-6. ``Pipeline`` (the defaults without lens distortion) on the same IMU and
-   GNSS and 150 frames of 1278 x 1022 rendered at the fixture's truth
-   camera poses: it must reach TRACKING_NORMAL, launch the KLT kernel
-   once per tracked frame and stay under tests/test_pipeline.py's 0.45 m
-   ATE bound.
+6. the replay command ``python -m ic_gvins_tpu_torch.tools.run_kaist`` (its
+   ``main``) on a KAIST-layout directory written from the same streams:
+   IMU and GNSS as CSV (fixes in geodetic coordinates), 150 frames of
+   1278 x 1022 rendered at the fixture's truth camera poses as 8-bit PNGs,
+   a TUM truth file and a ``gvins.yaml`` for the pinhole camera. The
+   ``Pipeline`` it drives (the defaults without lens distortion) must reach
+   TRACKING_NORMAL, launch the KLT kernel once per tracked frame, stay
+   under tests/test_pipeline.py's 0.45 m ATE after 4 s, write its output
+   files and report the ATE of its own trajectory.csv. The CSV load and
+   PNG decode times print on their own lines;
+7. ``Estimator(EngineConfig(odo=OdoConfig(use_odo=True)))`` at full width on
+   ``tests/fixtures/torch_estimator_odo.npz`` (the defaults streams, GNSS
+   until 9 s, a 50 Hz wheel odometer) against the JAX run stored there:
+   the same decisions, the trajectory within 1e-6 m / 1e-7 rad, the
+   odometer scale within 1e-8; then the run resumed in a fresh estimator
+   from its own checkpoint and from the JAX run's, both taken after the
+   middle event, within the same bounds of the run it continues.
 
-Phases 3 to 6 run with the kernel's launch count set to 0 before each and
+Phases 3 to 7 run with the kernel's launch count set to 0 before each and
 read after it; the ``launches`` of the kernels line sums phases 3 and 6.
 Every phase raises on failure. Needs a CUDA device: without one it exits
 with code 1 and prints no result. Prints a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
 """
 
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, redirect_stdout
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_slice_24x192.npz")
 ESTIMATOR_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_defaults.npz")
+ODO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_odo.npz")
 
 IMG_W, IMG_H = 1278, 1022  # engine default camera
 N_FEATURES = 200
@@ -104,6 +122,13 @@ TRAJ_ATT_ATOL = 1e-8  # rad, on the CPU
 # gets the attitude bound that matches TRAJ_POS_ATOL at the ~10 m range of
 # the landmarks.
 CARD_TRAJ_ATT_ATOL = 1e-7  # rad
+# the odometer scale of the full-width odometer run vs JAX on the card
+CARD_SODO_ATOL = 1e-8
+# KAIST-layout sequences written for the replay entry point: the local
+# frame's geodetic anchor (the latitude of the simulator's Earth rate) and
+# unix stamps of the dataset's epoch
+ORIGIN_BLH = (np.radians(30.5), np.radians(114.3), 20.0)
+T_BASE = 1.7e9  # s
 # Pipeline on rendered frames: tests/test_pipeline.py's ATE bound (after 4 s)
 PIPELINE_ATE = 0.45  # m
 PIPELINE_T_MIN = 4.0  # s
@@ -160,9 +185,12 @@ def engine_config(config_mod, s, cam=None, **overrides):
     tup = lambda d: {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}  # noqa: E731
     kw = tup(json.loads(str(s["cfg_json"])))
     cam_kw = {**kw.pop("cam", {}), **(cam or {})}
+    odo_kw = kw.pop("odo", None)
     cfg = config_mod.EngineConfig(**kw, **overrides)
     if cam_kw:
         cfg.cam = config_mod.CameraConfig(**tup(cam_kw))
+    if odo_kw:
+        cfg.odo = config_mod.OdoConfig(**tup(odo_kw))
     return cfg
 
 
@@ -172,18 +200,42 @@ def to_np(x):
     return x if x.dtype == bool else x.astype(np.float64)
 
 
-def feed(sink, est, s, on_frame):
-    """Feed a scenario's streams to ``sink`` (an ``Estimator`` or a
-    ``Pipeline`` of either package; ``est`` is its estimator) in the order
-    of the JAX package's tests: each IMU sample, then the GNSS fixes and
-    the frames stamped at or before it; ``on_frame(j)`` hands frame j to
-    the sink. Returns the event log, one row after each fix or frame:
-    ``log`` (engine state, nodes, keyframes, landmark slots in use, stats
-    rows) and the node times and keyframe flags, padded to the window."""
+def schedule(s):
+    """A scenario's sensor calls in the order of the JAX package's tests,
+    as (kind, index): for each IMU sample the odometer samples stamped at
+    or before it, the sample itself, then the GNSS fixes and the frames
+    stamped at or before it."""
+    calls = []
+    imu_t, gt, ft = s["imu_t"], s["gnss_t"], s["frame_t"]
+    ot = s.get("odo_t", np.zeros(0))
+    gi = fi = oi = 0
+    for k in range(len(imu_t)):
+        t = imu_t[k]
+        while oi < len(ot) and ot[oi] <= t:
+            calls.append(("odo", oi))
+            oi += 1
+        calls.append(("imu", k))
+        while gi < len(gt) and gt[gi] <= t:
+            calls.append(("gnss", gi))
+            gi += 1
+        while fi < len(ft) and ft[fi] <= t:
+            calls.append(("frame", fi))
+            fi += 1
+    return calls
+
+
+def feed(sink, est, s, on_frame, start=0, on_event=None):
+    """Feed a scenario's streams (``schedule``) to ``sink`` (an
+    ``Estimator`` or a ``Pipeline`` of either package; ``est`` is its
+    estimator); ``on_frame(j)`` hands frame j to the sink. An event is a
+    fix or a frame; ``start`` skips the calls up to and including event
+    ``start - 1`` (to continue a run resumed from a checkpoint taken
+    there), and ``on_event(e)`` runs after event e. Returns the event log,
+    one row per event fed: ``log`` (engine state, nodes, keyframes,
+    landmark slots in use, stats rows) and the node times and keyframe
+    flags, padded to the window."""
     n_cap = est.cfg.max_nodes
     rows, node_t, node_kf = [], [], []
-    gt, ft = s["gnss_t"], s["frame_t"]
-    gi = fi = 0
 
     def record():
         rows.append((est.state, est.n_nodes, est.n_keyframes, len(est.lm_slot), len(est.stats)))
@@ -191,18 +243,26 @@ def feed(sink, est, s, on_frame):
                              constant_values=np.nan))
         node_kf.append(np.pad(np.asarray(est.node_is_kf, bool), (0, n_cap - est.n_nodes)))
 
-    for k in range(len(s["imu_t"])):
-        t = float(s["imu_t"][k])
-        sink.add_imu(t, float(s["imu_dt"][k]), s["imu_dth"][k], s["imu_dv"][k])
-        while gi < len(gt) and gt[gi] <= t:
-            sink.add_gnss(float(gt[gi]), s["gnss_p"][gi], s["gnss_std"][gi])
-            gi += 1
+    event = 0
+    for kind, i in schedule(s):
+        if event < start:
+            event += kind in ("gnss", "frame")
+            continue
+        if kind == "odo":
+            sink.add_odo(float(s["odo_t"][i]), float(s["odo_v"][i]))
+        elif kind == "imu":
+            sink.add_imu(float(s["imu_t"][i]), float(s["imu_dt"][i]), s["imu_dth"][i],
+                         s["imu_dv"][i])
+        else:
+            if kind == "gnss":
+                sink.add_gnss(float(s["gnss_t"][i]), s["gnss_p"][i], s["gnss_std"][i])
+            else:
+                on_frame(i)
             record()
-        while fi < len(ft) and ft[fi] <= t:
-            on_frame(fi)
-            fi += 1
-            record()
-    return {"log": np.asarray(rows, np.int64), "log_node_t": np.asarray(node_t),
+            if on_event is not None:
+                on_event(event)
+            event += 1
+    return {"log": np.asarray(rows, np.int64).reshape(-1, 5), "log_node_t": np.asarray(node_t),
             "log_node_kf": np.asarray(node_kf)}
 
 
@@ -273,6 +333,97 @@ def compare_estimator(got, ref, att_atol=TRAJ_ATT_ATOL):
     check(dp <= TRAJ_POS_ATOL, f"trajectory positions {dp:.3g} m from JAX (> {TRAJ_POS_ATOL})")
     check(dq <= att_atol, f"trajectory attitudes {dq:.3g} rad from JAX (> {att_atol})")
     return dp, dq
+
+
+def write_kaist_dir(root, s, cfg):
+    """Write a scenario as a KAIST-layout sequence for
+    ``ic_gvins_tpu_torch.tools.run_kaist``: ``sensor_data/xsens_imu.csv``
+    (ns stamps, rates), ``sensor_data/vrs_gps.csv`` (the fixes converted to
+    geodetic about ORIGIN_BLH by the port's ``earth.local_to_global``),
+    ``image/stereo_left/<ns>.png`` (frames rendered with ``cfg``'s camera
+    at the truth poses, 8-bit grey, by the port's PNG writer), ``truth_tum.txt``
+    (200 Hz truth positions in the replay's frame, anchored at the first
+    fix) and ``gvins.yaml`` (``cfg``'s camera and window). Returns
+    (config path, truth path, truth times, truth positions in the replay's
+    frame, seconds spent writing PNGs)."""
+    import torch
+
+    from ic_gvins_tpu_torch.common import earth
+    from ic_gvins_tpu_torch.data.image import write_png
+    from ic_gvins_tpu_torch.data.simulator import render_sprite_frame_np
+
+    sensor = os.path.join(root, "sensor_data")
+    img_dir = os.path.join(root, "image", "stereo_left")
+    os.makedirs(sensor, exist_ok=True)
+    os.makedirs(img_dir, exist_ok=True)
+    ns = lambda t: np.int64(np.rint((T_BASE + np.asarray(t, np.float64)) * 1e9))  # noqa: E731
+    dt = s["imu_dt"][:, None]
+    rows = np.concatenate([np.zeros((len(dt), 7)), s["imu_dth"] / dt, s["imu_dv"] / dt], 1)
+    rows[:, 0] = 1.0  # quaternion w; the replay reads rates only
+    with open(os.path.join(sensor, "xsens_imu.csv"), "w") as f:
+        for t_ns, r in zip(ns(s["imu_t"]), rows):
+            f.write(f"{t_ns}," + ",".join(f"{x:.17g}" for x in r) + "\n")
+    tt = lambda x: torch.as_tensor(np.asarray(x, np.float64))  # noqa: E731
+    blh = earth.local_to_global(tt(ORIGIN_BLH), tt(s["gnss_p"])).numpy()
+    with open(os.path.join(sensor, "vrs_gps.csv"), "w") as f:
+        for t_ns, b in zip(ns(s["gnss_t"]), blh):
+            f.write(f"{t_ns},{np.degrees(b[0]):.15f},{np.degrees(b[1]):.15f},{b[2]:.6f}\n")
+    png_s = 0.0
+    for j, t in enumerate(s["frame_t"]):
+        img = render_sprite_frame_np(cfg.cam.intrinsic, cfg.cam.resolution, s["sprites"],
+                                     s["cam_t_wc"][j], s["cam_q_wc"][j])
+        t0 = time.perf_counter()
+        write_png(os.path.join(img_dir, f"{ns(t)}.png"), np.rint(img).astype(np.uint8), level=1)
+        png_s += time.perf_counter() - t0
+    # the replay anchors its local frame at the first fix
+    truth_p = earth.global_to_local(tt(blh[0]), earth.local_to_global(
+        tt(ORIGIN_BLH), tt(s["truth_p"]))).numpy()
+    truth_path = os.path.join(root, "truth_tum.txt")
+    with open(truth_path, "w") as f:
+        for t_ns, p in zip(ns(s["truth_t"]), truth_p):
+            f.write(f"{t_ns * 1e-9:.6f} {p[0]:.9f} {p[1]:.9f} {p[2]:.9f}\n")
+    c = cfg.cam
+    qw, qx, qy, qz = c.q_b_c
+    fmt = lambda v: "[" + ", ".join(repr(float(x)) for x in v) + "]"  # noqa: E731
+    cfg_path = os.path.join(root, "gvins.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(f"""# {len(s['frame_t'])} frames of {c.resolution[0]}x{c.resolution[1]}
+imudatarate: {cfg.imudatarate}
+iswithearth: {str(cfg.iswithearth).lower()}
+antlever: {fmt(cfg.antlever)}
+track_min_parallax: {cfg.track_min_parallax}
+track_max_interval: {cfg.track_max_interval}
+track_max_features: {cfg.track_max_features}
+reprojection_error_std: {cfg.reprojection_error_std}
+optimize_windows_size: {cfg.optimize_windows_size}
+optimize_num_iterations: {cfg.optimize_num_iterations}
+optimize_estimate_extrinsic: {str(cfg.optimize_estimate_extrinsic).lower()}
+optimize_estimate_td: {str(cfg.optimize_estimate_td).lower()}
+cam0:
+  intrinsic: {fmt(c.intrinsic)}
+  distortion: {fmt(c.distortion)}
+  resolution: [{c.resolution[0]}, {c.resolution[1]}]
+  q_b_c: {fmt((qx, qy, qz, qw))}  # x, y, z, w
+  t_b_c: {fmt(c.t_b_c)}
+  td_b_c: {float(c.td_b_c)}
+""")
+    return cfg_path, truth_path, ns(s["truth_t"]) * 1e-9, truth_p, png_s
+
+
+def replay_errors(out_dir, truth_t, truth_p):
+    """(stamps, position errors) of a replay's ``trajectory.csv``, each row
+    against the truth sample nearest in time (both lie on the same 200 Hz
+    grid)."""
+    rows = np.loadtxt(os.path.join(out_dir, "trajectory.csv"), ndmin=2)
+    t, p = rows[:, 0], rows[:, 1:4]
+    idx = np.clip(np.searchsorted(truth_t, t), 1, len(truth_t) - 1)
+    idx -= (t - truth_t[idx - 1]) < (truth_t[idx] - t)
+    check(np.all(np.abs(truth_t[idx] - t) < 1e-3), "trajectory off the truth grid")
+    return t, np.linalg.norm(p - truth_p[idx], axis=1)
+
+
+def rms(x):
+    return float(np.sqrt(np.mean(np.square(x))))
 
 
 def make_frames(n):
@@ -579,10 +730,10 @@ def phase_round(dev):
         + f", round {sum(ms.values()):.2f}")
 
 
-def run_estimator(s, dev, **overrides):
+def run_estimator(s, dev, on_event=None, **overrides):
     """The port's ``Estimator`` (the scenario's configuration with
-    ``overrides``) fed the scenario's ideal tracks on ``dev``:
-    (estimator, feed log + summary)."""
+    ``overrides``) fed the scenario's ideal tracks on ``dev``, calling
+    ``on_event(e, est)`` after event e: (estimator, feed log + summary)."""
     import torch
 
     from ic_gvins_tpu_torch.engine import config as tconfig
@@ -592,7 +743,8 @@ def run_estimator(s, dev, **overrides):
     if "ext_p" in s:  # the scenario's camera, set on the window as the JAX tests do
         est.window = est.window._replace(ext_p=torch.as_tensor(s["ext_p"], device=dev),
                                          ext_q=torch.as_tensor(s["ext_q"], device=dev))
-    log = feed(est, est, s, lambda j: est.add_frame_observations(*observations(s, j)))
+    log = feed(est, est, s, lambda j: est.add_frame_observations(*observations(s, j)),
+               on_event=None if on_event is None else lambda e: on_event(e, est))
     return est, {**log, **summarize(est)}
 
 
@@ -617,6 +769,31 @@ def run_pipeline(s, dev, use_clahe, **overrides):
 
     log = feed(pipe, pipe.est, s, on_frame)
     return pipe, {**log, **summarize(pipe.est)}, tracked[0]
+
+
+def resume_estimator(s, path, dev, start):
+    """A fresh port ``Estimator`` for scenario ``s`` resumed from the
+    checkpoint at ``path`` (either package's) and fed the calls after event
+    ``start - 1``: (estimator, feed log + summary)."""
+    from ic_gvins_tpu_torch.engine import config as tconfig
+    from ic_gvins_tpu_torch.engine.estimator import Estimator
+
+    est = Estimator(engine_config(tconfig, s), device=dev)
+    est.load_checkpoint(path)
+    log = feed(est, est, s, lambda j: est.add_frame_observations(*observations(s, j)),
+               start=start)
+    return est, {**log, **summarize(est)}
+
+
+def continuation_ref(full, ck, n_rounds):
+    """What a run resumed after event ``ck`` of the run ``full`` (feed log +
+    summary) must reproduce: its later events (stats rows count from 0 again:
+    they are not checkpointed), its last ``n_rounds`` stats rows and its
+    whole trajectory (checkpointed)."""
+    log = full["log"][ck + 1:].copy()
+    log[:, 4] -= full["log"][ck, 4]
+    return {**full, "log": log, "log_node_t": full["log_node_t"][ck + 1:],
+            "log_node_kf": full["log_node_kf"][ck + 1:], "stats": full["stats"][-n_rounds:]}
 
 
 def stage_line(est, seconds, data_s):
@@ -654,35 +831,110 @@ def phase_estimator(dev):
     log("phase 5 " + stage_line(est, wall, float(s["imu_t"][-1])))
 
 
-def phase_pipeline(dev):
-    """Phase 6: the full-width Pipeline on 1278 x 1022 frames rendered at
-    the defaults fixture's truth camera poses (pinhole: no distortion)."""
+@contextmanager
+def watch_pipeline():
+    """Record the ``Pipeline`` that a command builds and count the frames
+    its front end tracks (those after the first with features alive)."""
+    from ic_gvins_tpu_torch.engine import pipeline as pipeline_mod
+
+    seen = {"pipe": None, "tracked": 0}
+    add_image = pipeline_mod.Pipeline.add_image
+
+    def watched(self, t, img):
+        seen["pipe"] = self
+        fe = self.frontend
+        seen["tracked"] += int(fe.prev_pyr is not None and fe.valid.any())
+        return add_image(self, t, img)
+
+    pipeline_mod.Pipeline.add_image = watched
+    try:
+        yield seen
+    finally:
+        pipeline_mod.Pipeline.add_image = add_image
+
+
+def png_filter_ms(img, path):
+    """ms to decode ``img`` (uint8 grey) written with each PNG row filter:
+    None, Sub, Up (whole image at once), Average, Paeth (byte by byte)."""
+    from ic_gvins_tpu_torch.data.image import read_png, write_png
+
+    out = []
+    for f in range(5):
+        write_png(path, img, filters=f)
+        t0 = time.perf_counter()
+        back = read_png(path)
+        out.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(back, img), f"PNG filter {f} did not round-trip")
+    os.remove(path)
+    return out
+
+
+def phase_pipeline(dev, work):
+    """Phase 6: the replay command ``ic_gvins_tpu_torch.tools.run_kaist`` on
+    a KAIST-layout directory written from the defaults fixture (IMU and
+    GNSS as CSV, 150 frames of 1278 x 1022 rendered at the truth camera
+    poses as 8-bit PNGs, pinhole: no distortion)."""
     import torch
 
+    from ic_gvins_tpu_torch.data import kaist
+    from ic_gvins_tpu_torch.data.image import load_gray
+    from ic_gvins_tpu_torch.engine import config as tconfig
     from ic_gvins_tpu_torch.engine.estimator import TRACKING_NORMAL
+    from ic_gvins_tpu_torch.tools import run_kaist
     from ic_gvins_tpu_torch.vision import klt_cuda
 
-    fx = dict(np.load(ESTIMATOR_FIXTURE))
-    s = scenario(fx, "defaults")
+    s = scenario(dict(np.load(ESTIMATOR_FIXTURE)), "defaults")
+    # the renderer draws a pinhole: no distortion
+    cfg = engine_config(tconfig, s, cam={"distortion": (0.0, 0.0, 0.0, 0.0)})
+    root, out = os.path.join(work, "kaist"), os.path.join(work, "run")
+    t0 = time.perf_counter()
+    cfg_path, truth_path, truth_t, truth_p, png_s = write_kaist_dir(root, s, cfg)
+    log(f"phase 6 wrote the KAIST-layout sequence in {time.perf_counter() - t0:.2f} s "
+        f"({len(s['frame_t'])} PNGs in {png_s:.2f} s)")
+    t0 = time.perf_counter()
+    kaist.load_sequence(root)
+    csv_s = time.perf_counter() - t0
+    frames = sorted(os.listdir(os.path.join(root, "image", "stereo_left")))
+    t0 = time.perf_counter()
+    img = None
+    for name in frames:
+        img = load_gray(os.path.join(root, "image", "stereo_left", name))
+    png_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    log(f"phase 6 CSV load: {csv_s:.3f} s for {len(s['imu_t'])} IMU rows and "
+        f"{len(s['gnss_t'])} fixes (kaist.load_sequence)")
+    log(f"phase 6 PNG decode: {png_ms:.2f} ms per {img.shape[1]}x{img.shape[0]} frame "
+        f"({len(frames)} frames, rows filtered None); one frame by row filter None / Sub / "
+        f"Up / Average / Paeth: " + " / ".join(
+            f"{x:.1f}" for x in png_filter_ms(img, os.path.join(work, "filters.png"))) + " ms")
+
     klt_cuda.lk_track_bidirectional.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    # the renderer draws a pinhole: no distortion
-    pipe, got, tracked = run_pipeline(s, dev, use_clahe=True,
-                                      cam={"distortion": (0.0, 0.0, 0.0, 0.0)})
+    printed = io.StringIO()
+    with watch_pipeline() as seen, redirect_stdout(printed):
+        res = run_kaist.main(["--data", root, "--config", cfg_path, "--out", out,
+                              "--ref", truth_path, "--gps-default-std", "0.05",
+                              "--bayer", "none", "--device", str(dev)])
+    log("phase 6 run_kaist printed: " + printed.getvalue().strip())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = klt_cuda.lk_track_bidirectional.launches
+    pipe, tracked = seen["pipe"], seen["tracked"]
     est = pipe.est
-    e = trajectory_errors(got["traj_t"], got["traj_p"], s, PIPELINE_T_MIN)
-    ate = float(np.sqrt(np.mean(e ** 2)))
+    for name in ("gvins.nav", "trajectory.csv", "statistics.txt", "tracking.txt"):
+        check(os.path.getsize(os.path.join(out, name)) > 0, f"the replay wrote no {name}")
+    t, err = replay_errors(out, truth_t, truth_p)
+    ate = rms(err[t >= T_BASE + PIPELINE_T_MIN])
+    ate_run = rms(err[t >= t[0] + 5.0])
     fm = np.asarray(pipe.frame_ms)
-    log(f"phase 6 pipeline ({len(s['frame_t'])} frames of {est.cfg.cam.resolution[0]}x"
+    log(f"phase 6 run_kaist ({res['frames']} frames of {est.cfg.cam.resolution[0]}x"
         f"{est.cfg.cam.resolution[1]}, {est.cfg.track_max_features} features, CLAHE, "
         f"FM-RANSAC): final state {est.state} (>= {TRACKING_NORMAL}), {est.n_keyframes} "
-        f"keyframes in the window, {len(est.lm_slot)} landmark slots, {len(got['stats'])} "
+        f"keyframes in the window, {len(est.lm_slot)} landmark slots, {len(est.stats)} "
         f"rounds; KLT launches {launches} for {tracked} tracked frames; ATE after "
-        f"{PIPELINE_T_MIN:.0f} s {ate:.4f} m (< {PIPELINE_ATE}), max {e.max():.4f} m")
+        f"{PIPELINE_T_MIN:.0f} s {ate:.4f} m (< {PIPELINE_ATE}), max {err.max():.4f} m; "
+        f"the command's ate_rmse_m {res['ate_rmse_m']} vs {ate_run:.4f} m from its "
+        f"trajectory.csv; outputs " + ", ".join(sorted(os.listdir(out))))
     log(f"phase 6 front end ms per frame: first {fm[0]:.2f}, median {np.median(fm[1:]):.2f}, "
         f"max {fm[1:].max():.2f}; " + stage_line(est, wall, float(s["imu_t"][-1])))
     check(est.state == TRACKING_NORMAL, "the pipeline did not reach TRACKING_NORMAL")
@@ -690,7 +942,57 @@ def phase_pipeline(dev):
     check(tracked > 0 and launches == tracked, "the KLT kernel was not launched once per "
           "tracked frame")
     check(ate < PIPELINE_ATE, f"pipeline ATE {ate:.3f} m >= {PIPELINE_ATE}")
+    check(abs(res["ate_rmse_m"] - ate_run) <= 1e-4, "the command's ATE disagrees with its "
+          "trajectory.csv")
     return launches
+
+
+def phase_odometer(dev, work):
+    """Phase 7: ``Estimator(EngineConfig(odo=OdoConfig(use_odo=True)))`` at
+    full width on the odometer fixture (the defaults streams, GNSS until 9
+    s, a 50 Hz wheel odometer) against the JAX run stored there; then the
+    run resumed from its own checkpoint and from the JAX run's, both taken
+    after the middle event."""
+    import torch
+
+    s = scenario(dict(np.load(ODO_FIXTURE)), "odo")
+    ref = {k[4:]: v for k, v in s.items() if k.startswith("out/")}
+    ck = int(ref["ckpt_event"])
+    path = os.path.join(work, "odo_port.pkl")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est, got = run_estimator(s, dev, on_event=lambda e, est: (
+        est.save_checkpoint(path) if e == ck else None))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cfg = est.cfg
+    dp, dq = compare_estimator(got, ref, CARD_TRAJ_ATT_ATOL)
+    dsodo = abs(float(est.window.sodo) - float(ref["sodo"]))
+    e = trajectory_errors(got["traj_t"], got["traj_p"], s, 5.0)
+    log(f"phase 7 odometer estimator ({cfg.max_nodes} nodes x {cfg.max_landmarks} landmarks, "
+        f"{cfg.optimize_num_iterations} iters, GNSS until {s['gnss_t'][-1]:.0f} s, "
+        f"{len(s['odo_t'])} odometer samples): {len(got['stats'])} rounds, final state "
+        f"{est.state}; identical to JAX in events, node times, keyframes, LM steps; trajectory "
+        f"vs JAX {dp:.3g} m (<= {TRAJ_POS_ATOL}), {dq:.3g} rad (<= {CARD_TRAJ_ATT_ATOL}); "
+        f"sodo {float(est.window.sodo):.9f} vs JAX {float(ref['sodo']):.9f} ({dsodo:.3g} <= "
+        f"{CARD_SODO_ATOL}); ATE {rms(e):.4f} m (JAX {float(ref['ate_rmse']):.4f})")
+    log("phase 7 " + stage_line(est, wall, float(s["imu_t"][-1])))
+    check(dsodo <= CARD_SODO_ATOL, "odometer scale differs from JAX")
+    for name, ck_path, full in (("port", path, got), ("JAX", os.path.join(work, "odo_jax.pkl"),
+                                                       ref)):
+        if name == "JAX":
+            with open(ck_path, "wb") as f:
+                f.write(ref["ckpt"].tobytes())
+        t0 = time.perf_counter()
+        est2, got2 = resume_estimator(s, ck_path, dev, ck + 1)
+        dp2, dq2 = compare_estimator(got2, continuation_ref(full, ck, len(got2["stats"])),
+                                     CARD_TRAJ_ATT_ATOL)
+        ds2 = abs(float(est2.window.sodo) - float(ref["sodo"]))
+        log(f"phase 7 resumed from the {name} checkpoint after event {ck} of "
+            f"{len(ref['log'])}: {len(got2['stats'])} rounds in {time.perf_counter() - t0:.1f} s, "
+            f"identical events; trajectory vs the {name} run {dp2:.3g} m, {dq2:.3g} rad; sodo "
+            f"vs JAX {ds2:.3g}")
+        check(ds2 <= CARD_SODO_ATOL, f"odometer scale after the {name} checkpoint differs")
 
 
 def main():
@@ -700,7 +1002,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if not os.path.isdir(os.path.join(ROOT, "ic_gvins_tpu_torch")) or not all(
-            os.path.exists(f) for f in (FIXTURE, ESTIMATOR_FIXTURE)):
+            os.path.exists(f) for f in (FIXTURE, ESTIMATOR_FIXTURE, ODO_FIXTURE)):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
@@ -721,9 +1023,16 @@ def main():
     check(launches_frontend > 0, "the front end never launched the KLT kernel")
     phase_round(dev)
     phase_estimator(dev)
-    launches_pipeline = phase_pipeline(dev)
+    work = os.path.join(ROOT, "build", "smoke_replay")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        launches_pipeline = phase_pipeline(dev, work)
+        phase_odometer(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     launches = launches_frontend + launches_pipeline
-    log(f"klt launches: frontend {launches_frontend}, pipeline {launches_pipeline}")
+    log(f"klt launches: frontend {launches_frontend}, replay {launches_pipeline}")
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s, the build included")
 
     print(json.dumps({"kernels": [{

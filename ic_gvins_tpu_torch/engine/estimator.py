@@ -21,15 +21,20 @@ Window tensors are never written in place (the prior's linearization
 snapshot and the mechanization origin share them); every update builds
 new tensors.
 
-Not ported, and refused where asked for: the odometer
-(``cfg.odo.use_odo``, ``add_odo``), landmark-sharded rounds
-(``set_mesh``), window re-centering (``recenter_threshold > 0``; the port
-runs in float64, where the JAX package turns it off) and checkpoints.
-The JAX package's C++ IMU buffer is replaced by the Python one.
+With ``cfg.odo.use_odo`` the window's intervals carry the wheel
+odometer (``ins/preintegration_odo.py``) and the window estimates its
+scale. ``save_checkpoint`` / ``load_checkpoint`` use the JAX package's
+pickle layout, so either package resumes the other's checkpoints.
+
+Not ported, and refused where asked for: landmark-sharded rounds
+(``set_mesh``) and window re-centering (``recenter_threshold > 0``; the
+port runs in float64, where the JAX package turns it off). The JAX
+package's C++ IMU buffer is replaced by the Python one.
 """
 
 import bisect
 import math
+import pickle
 import time as _time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -49,6 +54,7 @@ from ..factors.marginalization import (
 )
 from ..ins import mechanization as mech
 from ..ins.preintegration import preintegrate
+from ..ins.preintegration_odo import OdoParams, preintegrate_odo
 from ..solver import lm as lm_mod
 from ..solver.assembly import eval_reproj_res, obs_mask
 from ..solver.window import SolverConfig, empty_prior, empty_window, make_init_prior
@@ -85,6 +91,32 @@ def _put(full, i, x):
     out = full.clone()
     out[i] = torch.as_tensor(x, dtype=out.dtype, device=out.device)
     return out
+
+
+def _leaves(tree) -> list:
+    """The leaves of nested NamedTuples in field order, ``None`` left out:
+    the JAX package's ``jax.tree.flatten`` order."""
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _unflatten(template, leaves, device):
+    """``template``'s structure (tensors) filled with ``leaves`` (numpy
+    arrays in ``_leaves`` order, of the template's shapes) as tensors on
+    ``device``."""
+    shapes = [tuple(x.shape) for x in _leaves(template)]
+    if [np.shape(x) for x in leaves] != shapes:
+        raise ValueError("the checkpoint's window layout is not this configuration's "
+                         "(window sizes, odometer)")
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, tuple):
+            return type(t)(*(build(v) for v in t))
+        return None if t is None else torch.as_tensor(np.asarray(next(it)), device=device)
+
+    return build(template)
 
 
 def _np_quat_mul(q1, q2):
@@ -229,8 +261,6 @@ class Estimator:
     """INS-centric GNSS(+Visual) fusion engine."""
 
     def __init__(self, cfg: EngineConfig, device=None):
-        if cfg.odo.use_odo:
-            raise NotImplementedError("the odometer (cfg.odo.use_odo) is not ported")
         if cfg.recenter_threshold is not None and cfg.recenter_threshold > 0:
             raise NotImplementedError("window re-centering (recenter_threshold > 0) "
                                       "is not ported; the port runs in float64")
@@ -263,6 +293,16 @@ class Estimator:
             sodo_prior_std=t(cfg.odo.sodo_prior_std),
             chi2_compound=flag(cfg.chi2_compound),
         )
+        self.use_odo = bool(cfg.odo.use_odo)
+        if self.use_odo:
+            self.odo_params = OdoParams(
+                cvb=rot.quat_to_matrix(rot.euler_to_quat(t(cfg.odo.mount_euler))),
+                lodo=t(cfg.odo.lever), odo_vrw=t(cfg.odo.odo_vrw),
+                odo_srw=t(cfg.odo.odo_srw),
+            )
+        # odometer forward-velocity samples (t, v) for interval slicing
+        self.odo_t: list[float] = []
+        self.odo_v: list[float] = []
 
         self.state = INITIALIZING
         self.imu = _ImuBuffer()
@@ -277,7 +317,8 @@ class Estimator:
         self.origin_blh: np.ndarray | None = None
 
         q_bc = np.asarray(cfg.cam.q_b_c, np.float64)
-        self.window = empty_window(cfg.max_nodes, cfg.max_landmarks, device=dev)._replace(
+        self.window = empty_window(cfg.max_nodes, cfg.max_landmarks, device=dev,
+                                   odo=self.use_odo)._replace(
             ext_p=t(cfg.cam.t_b_c), ext_q=t(q_bc / np.linalg.norm(q_bc)),
             td=t(cfg.cam.td_b_c),
         )
@@ -399,16 +440,100 @@ class Estimator:
             self._try_initialize()
 
     def add_odo(self, t, vel):
-        raise NotImplementedError("the odometer is not ported")
+        """Wheel-odometer forward velocity sample (m/s), interpolated onto
+        the IMU sample times at preintegration."""
+        self.odo_t.append(float(t))
+        self.odo_v.append(float(vel))
+
+    def _odo_increments(self, imu: ImuSeq) -> torch.Tensor:
+        """Per-IMU-sample odometer displacement increments dt * v(t)."""
+        if not self.odo_t:
+            return torch.zeros_like(imu.dt)
+        t, dt = _host(imu.time), _host(imu.dt)
+        return self._dev(np.interp(t, np.asarray(self.odo_t), np.asarray(self.odo_v)) * dt)
 
     def set_mesh(self, mesh):
         raise NotImplementedError("landmark-sharded rounds (set_mesh) are not ported")
 
+    # ------------------------------------------------------------------
+    # checkpoint / resume
+    # ------------------------------------------------------------------
+
     def save_checkpoint(self, path: str):
-        raise NotImplementedError("checkpoints are not ported")
+        """Pickle the window, prior and host bookkeeping in the JAX
+        package's layout (its keys; window and prior leaves as numpy in its
+        flatten order), so that either package resumes the other's
+        checkpoints."""
+        to_np = lambda xs: [_host(x) for x in xs]  # noqa: E731
+        state = dict(
+            window=to_np(_leaves(self.window)),
+            prior=to_np(_leaves(self.prior)),
+            n_nodes=self.n_nodes,
+            node_times=self.node_times,
+            node_is_kf=self.node_is_kf,
+            n_keyframes=self.n_keyframes,
+            lm_slot=self.lm_slot,
+            free_slots=self.free_slots,
+            engine_state=self.state,
+            iewn=_host(self.params.iewn),
+            last_node_state=(to_np(self.last_node_state)
+                             if self.last_node_state is not None else None),
+            imu=self.imu.arrays(),
+            odo=(self.odo_t, self.odo_v),
+            origin=self.origin,
+            traj=(self.traj_times, self.traj_p, self.traj_q),
+            ext_accepted=(to_np(self._ext_accepted)
+                          if self._ext_accepted is not None else None),
+            pending_events=self.pending_events,
+            imu_repaired=self.imu_repaired,
+            dropped_gnss=self.dropped_gnss,
+            origin_blh=self.origin_blh,
+            gravity=_host(self.params.gravity),
+            n_recenters=0,  # re-centering is not ported
+            gins_chi2=list(self._gins_chi2),
+            align_bg=self._align_bg,
+            align_rollpitch=self._align_rollpitch,
+        )
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
 
     def load_checkpoint(self, path: str):
-        raise NotImplementedError("checkpoints are not ported")
+        """Resume from a checkpoint of either package; the configuration
+        (window sizes, odometer) must be the one it was saved with."""
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        dev = self.device
+        self.window = _unflatten(self.window, state["window"], dev)
+        self.prior = _unflatten(self.prior, state["prior"], dev)
+        self.n_nodes = state["n_nodes"]
+        self.node_times = state["node_times"]
+        self.node_is_kf = state["node_is_kf"]
+        self.n_keyframes = state["n_keyframes"]
+        self.lm_slot = state["lm_slot"]
+        self.free_slots = state["free_slots"]
+        self.state = state["engine_state"]
+        self._set_params(iewn=self._dev(state["iewn"]))
+        if "gravity" in state:
+            self._set_params(gravity=self._dev(state["gravity"]))
+        if state["last_node_state"] is not None:
+            self.last_node_state = _unflatten(self.window.nodes.index(0),
+                                              state["last_node_state"], dev)
+            self.cur_state = self.last_node_state
+        self.imu = _ImuBuffer()
+        for t, dt, dth, dv in zip(*state["imu"]):
+            self.imu.append(float(t), float(dt), np.asarray(dth), np.asarray(dv))
+        self.odo_t, self.odo_v = state.get("odo", ([], []))
+        self.origin = state.get("origin", np.zeros(3, np.float64))
+        self.traj_times, self.traj_p, self.traj_q = state["traj"]
+        ea = state.get("ext_accepted")
+        self._ext_accepted = (self._dev(ea[0]), self._dev(ea[1])) if ea is not None else None
+        self.pending_events = state.get("pending_events", [])
+        self.imu_repaired = state.get("imu_repaired", 0)
+        self.dropped_gnss = state.get("dropped_gnss", 0)
+        self.origin_blh = state.get("origin_blh")
+        self._gins_chi2 = list(state.get("gins_chi2", []))
+        self._align_bg = state.get("align_bg")
+        self._align_rollpitch = state.get("align_rollpitch")
 
     def set_origin_blh(self, blh):
         """Geodetic anchor (lat rad, lon rad, h m) of the local frame:
@@ -606,9 +731,13 @@ class Estimator:
         return out
 
     def _preintegrate(self, state_prev: NavState, t0: float, t1: float):
-        """Preintegrate the IMU of (t0, t1] from ``state_prev``."""
+        """Preintegrate the IMU of (t0, t1] from ``state_prev``, with the
+        odometer at the window's scale when one is configured."""
         imu = self._imu_slice(t0, t1)
         with self._timed("preintegrate"):
+            if self.use_odo:
+                return preintegrate_odo(self.params, self.odo_params, state_prev,
+                                        self.window.sodo, imu, self._odo_increments(imu))
             return preintegrate(self.params, state_prev, imu)
 
     def _add_time_node(self, t: float, is_kf: bool):
@@ -1158,8 +1287,15 @@ class Estimator:
         was_kf = self.node_is_kf.pop(0)
         self.node_times.pop(0)
         self.n_nodes -= 1
-        # trim the IMU buffer to the window head
+        # trim the IMU buffer and the odometer samples to the window head
         self.imu.drop_before(self.node_times[0] - 0.05)
+        if self.odo_t:
+            head = self.node_times[0] - 0.1
+            k = 0
+            while k < len(self.odo_t) - 2 and self.odo_t[k + 1] < head:
+                k += 1
+            if k > 0:
+                del self.odo_t[:k], self.odo_v[:k]
         if was_kf:
             self.n_keyframes -= 1
         # free landmark slots that died with the marginalized anchor

@@ -120,6 +120,10 @@ class Frontend:
         self.ids = np.full(F, -1, np.int64)
         self.valid = np.zeros(F, bool)
         self.next_id = 0
+        # the last frame's tracked features, for a drawer
+        self.last_prev_pts = np.zeros((0, 2), np.float32)
+        self.last_cur_pts = np.zeros((0, 2), np.float32)
+        self.last_tracked_ids = np.zeros(0, np.int64)
 
     def reset(self):
         """Drop all tracked features; the next frame re-initializes."""
@@ -176,6 +180,10 @@ class Frontend:
             pts1, ok, uv_new = (x.cpu().numpy() for x in (pts1_d, ok_d, uv1_d))
             dt = max(t - self.prev_time, 1e-3)
             self.vel_norm = np.where(ok[:, None], (uv_new - self.uv_norm) / dt, 0.0)
+            sel_draw = np.nonzero(ok)[0]
+            self.last_prev_pts = self.pts[sel_draw].copy()
+            self.last_cur_pts = pts1[sel_draw].astype(np.float32)
+            self.last_tracked_ids = self.ids[sel_draw].copy()
             self.pts = np.where(ok[:, None], pts1, self.pts).astype(np.float32)
             self.uv_norm = np.where(ok[:, None], uv_new, self.uv_norm)
             self.valid = ok

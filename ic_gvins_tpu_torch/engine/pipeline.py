@@ -5,10 +5,13 @@ A deterministic host loop: IMU and GNSS go straight to the estimator;
 each camera frame gets the INS-predicted camera pose
 (``Estimator.predicted_state``), is tracked by the front end (on a card,
 through the hand-written KLT kernel) and its normalized observations feed
-the estimator's keyframe logic.
+the estimator's keyframe logic. An optional drawer (``engine/drawer.py``)
+receives the tracked points, poses and fixed landmarks of every frame.
 """
 
 import time as _time
+
+import numpy as np
 
 from ..common.logging import LOGW
 from ..vision import camera as cam_mod
@@ -19,7 +22,7 @@ from .frontend import Frontend
 
 class Pipeline:
     def __init__(self, cfg: EngineConfig, device=None, use_clahe: bool = True,
-                 cell: int | None = None):
+                 drawer=None, cell: int | None = None):
         self.cfg = cfg
         self.est = Estimator(cfg, device=device)
         cam = cam_mod.Camera.create(cfg.cam.intrinsic, cfg.cam.distortion,
@@ -35,6 +38,8 @@ class Pipeline:
                                  use_clahe=use_clahe,
                                  check_histogram=cfg.track_check_histogram)
         self.frame_ms: list[float] = []  # front-end wall ms per frame
+        self.drawer = drawer
+        self._n_fixed_pushed = 0
 
     def add_imu(self, t, dt, dtheta, dvel):
         self.est.add_imu(t, dt, dtheta, dvel)
@@ -70,6 +75,26 @@ class Pipeline:
             self.est.add_frame_observations(t, ids, uv, vel, force_kf=force)
             if len(self.est.track_log) > n_log:  # this frame made a keyframe
                 self.est.track_log[-1]["cost_ms"] = round(track_ms, 3)
+        if self.drawer is not None:
+            self._push_drawer(t, img)
+
+    def _push_drawer(self, t, img):
+        """Forward the frame's tracking, map and pose state to the drawer
+        (the reference's updateTrackedMapPoints / updateTrackedRefPoints /
+        updateFrame / addNewFixedMappoint calls)."""
+        fe, est, d = self.frontend, self.est, self.drawer
+        in_map = np.array([fid in est.lm_slot for fid in fe.last_tracked_ids], bool)
+        types = np.array([est.lm_type[est.lm_slot[fid]]
+                          for fid in fe.last_tracked_ids[in_map]], np.int32)
+        d.update_tracked_mappoints(fe.last_prev_pts[in_map], fe.last_cur_pts[in_map], types)
+        d.update_tracked_refpoints(fe.last_prev_pts[~in_map], fe.last_cur_pts[~in_map])
+        d.update_frame(img)
+        s = est.predicted_state(t) or est.last_node_state
+        if s is not None:
+            d.update_odometry(t, _host(s.p) + est.origin, _host(s.q))
+        while self._n_fixed_pushed < len(est.fixed_mappoints):
+            d.add_new_fixed_mappoint(est.fixed_mappoints[self._n_fixed_pushed])
+            self._n_fixed_pushed += 1
 
     def trajectory(self):
         return self.est.trajectory()

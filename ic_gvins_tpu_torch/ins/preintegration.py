@@ -64,11 +64,11 @@ def _compose_tree(phi, qk):
     """(J, P) of the recursions J <- Phi J, P <- Phi P Phi^T + Q over the
     steps (axis -3), composed pairwise in a log-depth tree padded to a
     power of two with the identity step, as the JAX package does."""
-    n = phi.shape[-3]
+    n, d = phi.shape[-3], phi.shape[-1]
     n_pow2 = 1 << (n - 1).bit_length() if n > 1 else 1
     if n_pow2 != n:
-        pad = phi.shape[:-3] + (n_pow2 - n, 15, 15)
-        eye = torch.eye(15, dtype=phi.dtype, device=phi.device).expand(pad)
+        pad = phi.shape[:-3] + (n_pow2 - n, d, d)
+        eye = torch.eye(d, dtype=phi.dtype, device=phi.device).expand(pad)
         phi = torch.cat([phi, eye], -3)
         qk = torch.cat([qk, torch.zeros(pad, dtype=qk.dtype, device=qk.device)], -3)
     while phi.shape[-3] > 1:
@@ -79,34 +79,33 @@ def _compose_tree(phi, qk):
     return phi[..., 0, :, :], qk[..., 0, :, :]
 
 
-def preintegrate(
-    params: IntegrationParams, state0: NavState, imu: ImuSeq
-) -> PreintData:
-    """Integrate IMU increments from ``state0``.
+class _Steps(NamedTuple):
+    """Per-step quantities of one integration (step axis -2 or -3),
+    shared by the plain and the odometer-augmented variants."""
 
-    ``imu`` starts with the sample *at* the interval start (only the
-    coning predecessor); the rest advance the integration. Zero-padded
-    samples (dt = dtheta = dvel = 0) are no-ops. ``state0`` fields carry
-    the same leading axes as ``imu.dt[..., 0]``.
+    dth_cur: torch.Tensor  # [..., n, 3] bias-compensated increments
+    dv_cur: torch.Tensor
+    dt1: torch.Tensor  # [..., n, 1]
+    q_comp: torch.Tensor  # [..., n, 4] Earth-compensated delta attitude before the step
+    cbb0: torch.Tensor  # [..., n, 3, 3] minus the compensated delta DCM after the step
+    q_all: torch.Tensor  # [..., n, 4] continuous state after each step
+    v_all: torch.Tensor
+    p_all: torch.Tensor
+    dq_all: torch.Tensor  # [..., n, 4] delta state after each step
+    dv_all: torch.Tensor
+    dp_all: torch.Tensor
 
-    The recursions of the JAX package's per-sample scan run over all
-    samples at once: the attitude chains are prefix products of
-    quaternions, the velocity (with its Coriolis term) a prefix of affine
-    maps, positions and deltas cumulative sums, each in log2(n) batched
-    rounds; the Jacobian and covariance compose in the JAX package's
-    pairwise tree. Only the association order of the sums and products
-    differs from a sequential loop.
-    """
+
+def _integrate(params: IntegrationParams, state0: NavState, imu: ImuSeq) -> _Steps:
+    """The continuous and delta states of every step, as prefix scans."""
     p0 = state0.p
     dtype, dev = p0.dtype, p0.device
     batch = p0.shape[:-1]
     n = imu.dt.shape[-1] - 1  # integration steps
-    noise = noise_psd(params, dtype)
     eye3 = _eye(3, p0)
     q0, q0_inv = state0.q, rot.quat_inv(state0.q)
     iewn = params.iewn.to(dtype)
     gravity = params.gravity.to(dtype)
-    corr_time = params.corr_time.to(dtype)
     step = lambda x: x[..., None, :]  # noqa: E731  state -> [..., 1, k]
 
     dth_all, dv_all = compensate_bias(imu.dtheta, imu.dvel, imu.dt,
@@ -151,41 +150,86 @@ def preintegrate(
     dv_prev = dv_all - dvel_d
     dp_all = torch.cumsum(dt1 * dv_prev + 0.5 * dt1 * dvel_d, -2)
 
-    # transition + noise of every step
     qend = rot.rotvec_to_quat(-iewn * t_new[..., None])
     cbb0 = -rot.quat_to_matrix(
         rot.quat_mul(step(q0_inv), rot.quat_mul(qend, rot.quat_mul(step(q0), dq_all))))
-    dt2 = dt1[..., None]
-    decay = eye3 * (1.0 - dt2 / corr_time)
-    phi = torch.zeros(batch + (n, 15, 15), dtype=dtype, device=dev)
+    return _Steps(dth_cur=dth_cur, dv_cur=dv_cur, dt1=dt1, q_comp=q_comp, cbb0=cbb0,
+                  q_all=q_all, v_all=v_all, p_all=p_all, dq_all=dq_all, dv_all=dv_all,
+                  dp_all=dp_all)
+
+
+def _imu_blocks(params: IntegrationParams, st: _Steps, n_state: int, n_noise: int):
+    """Phi [..., n, n_state, n_state] and G [..., n, n_state, n_noise] of
+    every step with the 15-state IMU blocks filled; the odometer variant
+    adds its rows."""
+    dtype, dev = st.dt1.dtype, st.dt1.device
+    eye3 = _eye(3, st.dt1)
+    dt2 = st.dt1[..., None]
+    cbb0 = st.cbb0
+    decay = eye3 * (1.0 - dt2 / params.corr_time.to(dtype))
+    lead = st.dt1.shape[:-1]
+    phi = torch.zeros(lead + (n_state, n_state), dtype=dtype, device=dev)
     phi[..., 0:3, 0:3] = eye3
     phi[..., 0:3, 3:6] = eye3 * dt2
     phi[..., 3:6, 3:6] = eye3
-    phi[..., 3:6, 6:9] = cbb0 @ rot.skew(dv_cur)
+    phi[..., 3:6, 6:9] = cbb0 @ rot.skew(st.dv_cur)
     phi[..., 3:6, 12:15] = cbb0 * dt2
-    phi[..., 6:9, 6:9] = eye3 - rot.skew(dth_cur)
+    phi[..., 6:9, 6:9] = eye3 - rot.skew(st.dth_cur)
     phi[..., 6:9, 9:12] = -eye3 * dt2
     phi[..., 9:12, 9:12] = decay
     phi[..., 12:15, 12:15] = decay
-    gt = torch.zeros(batch + (n, 15, 12), dtype=dtype, device=dev)
+    gt = torch.zeros(lead + (n_state, n_noise), dtype=dtype, device=dev)
     gt[..., 3:6, 3:6] = cbb0
     gt[..., 6:9, 0:3] = -eye3
     gt[..., 9:12, 6:9] = eye3
     gt[..., 12:15, 9:12] = eye3
+    return phi, gt
+
+
+def _propagate(phi, gt, noise, dt1):
+    """(J, P) from the steps' transitions and noise maps: the trapezoid
+    Q_k = dt/2 (Phi G N G^T + G N G^T Phi^T), composed in the tree."""
     gng = gt @ noise @ gt.transpose(-1, -2)
-    qk = 0.5 * dt2 * (phi @ gng + gng @ phi.transpose(-1, -2))
-    J, P = _compose_tree(phi, qk)
+    qk = 0.5 * dt1[..., None] * (phi @ gng + gng @ phi.transpose(-1, -2))
+    return _compose_tree(phi, qk)
+
+
+def _interval_length(imu: ImuSeq):
+    """The interval's length summed in sample order, as the JAX scan sums
+    it: a parallel scan on the card rounds otherwise, and node times feed
+    comparisons (the keyframe interval) that a last bit can flip."""
+    return torch.cumsum(imu.dt[..., 1:].cpu(), -1)[..., -1].to(imu.dt.device)
+
+
+def preintegrate(
+    params: IntegrationParams, state0: NavState, imu: ImuSeq
+) -> PreintData:
+    """Integrate IMU increments from ``state0``.
+
+    ``imu`` starts with the sample *at* the interval start (only the
+    coning predecessor); the rest advance the integration. Zero-padded
+    samples (dt = dtheta = dvel = 0) are no-ops. ``state0`` fields carry
+    the same leading axes as ``imu.dt[..., 0]``.
+
+    The recursions of the JAX package's per-sample scan run over all
+    samples at once: the attitude chains are prefix products of
+    quaternions, the velocity (with its Coriolis term) a prefix of affine
+    maps, positions and deltas cumulative sums, each in log2(n) batched
+    rounds; the Jacobian and covariance compose in the JAX package's
+    pairwise tree. Only the association order of the sums and products
+    differs from a sequential loop.
+    """
+    st = _integrate(params, state0, imu)
+    phi, gt = _imu_blocks(params, st, 15, 12)
+    J, P = _propagate(phi, gt, noise_psd(params, state0.p.dtype), st.dt1)
 
     last = lambda x: x[..., -1, :]  # noqa: E731
-    # the interval's length summed in sample order, as the JAX scan sums
-    # it: a parallel scan on the card rounds otherwise, and node times
-    # feed comparisons (the keyframe interval) that a last bit can flip
-    t_acc = torch.cumsum(dt.cpu(), -1)[..., -1].to(dev)
-    end_state = NavState(time=state0.time + t_acc, p=last(p_all), q=last(q_all),
-                         v=last(v_all), bg=state0.bg, ba=state0.ba)
+    t_acc = _interval_length(imu)
+    end_state = NavState(time=state0.time + t_acc, p=last(st.p_all), q=last(st.q_all),
+                         v=last(st.v_all), bg=state0.bg, ba=state0.ba)
     return PreintData(
-        dp=last(dp_all), dv=last(dv_all), dq=last(dq_all), jac=J, cov=P, dt=t_acc,
-        sum_dt_pn=torch.sum(dt1 * p_all, -2), bg_ref=state0.bg, ba_ref=state0.ba,
+        dp=last(st.dp_all), dv=last(st.dv_all), dq=last(st.dq_all), jac=J, cov=P, dt=t_acc,
+        sum_dt_pn=torch.sum(st.dt1 * st.p_all, -2), bg_ref=state0.bg, ba_ref=state0.ba,
         end_state=end_state,
     )
 

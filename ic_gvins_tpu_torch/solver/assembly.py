@@ -28,7 +28,10 @@ from ..factors.residuals import (
     reprojection_residual_jac,
 )
 from ..ins.preintegration import preint_residual, preint_residual_jac, sqrt_information
+from ..ins.preintegration_odo import OdoPreintData, preint_odo_residual, preint_odo_residual_jac
 from .window import EXT_DOF, NODE_DOF, Prior, SolverConfig, Window, state_boxminus
+
+SODO = 7  # the odometer scale's index in the extrinsic block
 
 
 class RobustFlags(NamedTuple):
@@ -53,12 +56,10 @@ def huber_weight(s):
     return torch.clamp(1.0 / torch.sqrt(torch.clamp(s, min=1e-30)), max=1.0)
 
 
-def check_plain_window(window: Window) -> None:
-    """The port has no odometer-augmented preintegration yet."""
-    if window.preint.jac.shape[-1] != NODE_DOF:
-        raise NotImplementedError(
-            "odometer-augmented windows are not ported; use a plain window"
-        )
+def is_odo_window(window: Window) -> bool:
+    """Does the window carry odometer-augmented intervals (the ODO /
+    EARTH_ODO variants)?"""
+    return isinstance(window.preint, OdoPreintData)
 
 
 def _nodes_at(window: Window, idx) -> NavState:
@@ -110,10 +111,13 @@ def _preint_pairs(window: Window):
 
 
 def eval_preint(window: Window, params: IntegrationParams):
-    """Whitened residuals [N-1,15] and Jacobians [N-1,15,30], masked."""
-    check_plain_window(window)
+    """Whitened residuals [N-1,R] and Jacobians [N-1,R,C], masked (R, C =
+    15, 30 plain; 19, 31 with the odometer, column 30 the window's scale)."""
     s0, s1 = _preint_pairs(window)
-    r, J = preint_residual_jac(window.preint, s0, s1, params)
+    if is_odo_window(window):
+        r, J = preint_odo_residual_jac(window.preint, s0, s1, window.sodo, params)
+    else:
+        r, J = preint_residual_jac(window.preint, s0, s1, params)
     S = sqrt_information(window.preint.cov)
     m = preint_mask(window).to(r.dtype)
     return mv(S, r) * m[:, None], (S @ J) * m[:, None, None]
@@ -191,10 +195,13 @@ def eval_prior(window: Window, prior: Prior):
 def robust_cost(window: Window, prior: Prior, cfg: SolverConfig,
                 params: IntegrationParams, flags: RobustFlags):
     """Total robust cost 0.5 * sum(rho(chi2)) over all factors."""
-    check_plain_window(window)
     dtype = window.nodes.p.dtype
     s0, s1 = _preint_pairs(window)
-    r_pre = preint_residual(window.preint, s0, s1, params, whiten=True)
+    if is_odo_window(window):
+        sodo = window.sodo
+        r_pre = preint_odo_residual(window.preint, s0, sodo, s1, sodo, params, whiten=True)
+    else:
+        r_pre = preint_residual(window.preint, s0, s1, params, whiten=True)
     r_pre = r_pre * preint_mask(window).to(dtype)[:, None]
     r_g, _ = eval_gnss(window, cfg)
     r_v = eval_reproj_res(window, cfg)
@@ -206,13 +213,16 @@ def robust_cost(window: Window, prior: Prior, cfg: SolverConfig,
 
     chi_g = torch.sum(r_g**2, -1)
     chi_v = torch.sum(r_v**2, -1)
-    return 0.5 * (
+    cost = 0.5 * (
         torch.sum(r_pre**2)
         + torch.sum(huber_rho(chi_g) if flags.gnss_kernel else chi_g)
         + torch.sum(huber_rho(chi_v) if flags.reproj_kernel else chi_v)
         + torch.sum(r_b**2)
         + prior_cost2
     )
+    if is_odo_window(window):
+        cost = cost + 0.5 * (window.sodo / cfg.sodo_prior_std) ** 2
+    return cost
 
 
 def _ata(a, b):
@@ -261,6 +271,12 @@ def assemble_blocks(
     Hnn[j, :, i, :] += Aij.transpose(-1, -2)
     g_n[i] += mv(Ji.transpose(-1, -2), r_pre)
     g_n[j] += mv(Jj.transpose(-1, -2), r_pre)
+    if is_odo_window(window):
+        Js = J_pre[..., 2 * NODE_DOF]  # w.r.t. the window's odometer scale
+        Hne[i, :, SODO] += mv(Ji.transpose(-1, -2), Js)
+        Hne[j, :, SODO] += mv(Jj.transpose(-1, -2), Js)
+        Hee[SODO, SODO] += torch.sum(Js * Js)
+        g_e[SODO] += torch.sum(Js * r_pre)
     cost = 0.5 * torch.sum(r_pre**2)
 
     # --- GNSS factors (Huber-weighted IRLS), diagonal pose blocks ---
@@ -336,6 +352,13 @@ def assemble_blocks(
         g_n[k_new] += J_b.T @ r_b
         cost = cost + 0.5 * torch.sum(r_b**2)
 
+    # --- soft odometer-scale prior (imu_error_factor.h) ---
+    if include_soft_priors and is_odo_window(window):
+        w_s = 1.0 / cfg.sodo_prior_std**2
+        Hee[SODO, SODO] += w_s
+        g_e[SODO] += w_s * window.sodo
+        cost = cost + 0.5 * w_s * window.sodo**2
+
     # --- marginalization / initialization prior ---
     P, g_pri, prior_cost2 = eval_prior(window, prior)
     Hnn += P[:NL, :NL].reshape(N, NODE_DOF, N, NODE_DOF)
@@ -368,14 +391,14 @@ def assemble_blocks(
 
 
 def free_mask_states(window: Window, cfg: SolverConfig) -> torch.Tensor:
-    """[DX] bool: state dims free to move (valid nodes + enabled ext/td;
-    the odometer scale stays frozen)."""
+    """[DX] bool: state dims free to move (valid nodes + enabled ext/td,
+    and the odometer scale in odometer windows)."""
     dev = window.node_valid.device
     node_free = window.node_valid.repeat_interleave(NODE_DOF)
     flag = lambda b, n: torch.as_tensor(b, device=dev).to(torch.bool).reshape(1).expand(n)  # noqa: E731
     return torch.cat([
         node_free, flag(cfg.estimate_extrinsic, 6), flag(cfg.estimate_td, 1),
-        torch.zeros(1, dtype=torch.bool, device=dev),
+        flag(cfg.estimate_sodo, 1) & is_odo_window(window),
     ])
 
 

@@ -4,9 +4,10 @@ Layout of the error-state vector (dimension ``dim_total``):
 
     [ node 0 (15) | ... | node N-1 (15) | ext (6) | td (1) | sodo (1) | landmarks (L) ]
 
-per node: [dp 0:3, dtheta 3:6, dv 6:9, dbg 9:12, dba 12:15]. The odometer
-scale ``sodo`` keeps its slot so the layout matches the JAX package; the
-port has no odometer window yet, so it stays frozen.
+per node: [dp 0:3, dtheta 3:6, dv 6:9, dbg 9:12, dba 12:15]. ``sodo`` is
+the odometer scale factor, one window-global state; it is free only in
+odometer windows (``empty_window(..., odo=True)``), whose intervals are
+19-state ``OdoPreintData``.
 """
 
 from typing import NamedTuple, Optional
@@ -17,6 +18,8 @@ from ..data.types import NavState
 from ..device import resolve_device
 from ..factors.manifold import node_boxminus, node_boxplus, pose_boxminus, pose_boxplus
 from ..ins.preintegration import PreintData
+from ..ins.preintegration_odo import NUM_STATE as ODO_DOF
+from ..ins.preintegration_odo import OdoPreintData
 
 NODE_DOF = 15
 EXT_DOF = 8  # 6 extrinsic + 1 time delay + 1 odometer scale
@@ -29,7 +32,7 @@ class Window(NamedTuple):
     nodes: NavState  # [N]
     node_valid: torch.Tensor  # [N] bool
     node_is_kf: torch.Tensor  # [N] bool
-    preint: PreintData  # [N-1]; interval i joins node i -> i+1
+    preint: PreintData  # [N-1]; interval i joins node i -> i+1 (OdoPreintData with the odometer)
     preint_valid: torch.Tensor  # [N-1] bool
     gnss_p: torch.Tensor  # [N,3]
     gnss_std: torch.Tensor  # [N,3] effective std (chi2-reweighted)
@@ -38,7 +41,7 @@ class Window(NamedTuple):
     ext_p: torch.Tensor  # (3,) camera-IMU translation
     ext_q: torch.Tensor  # (4,) camera-IMU rotation
     td: torch.Tensor  # () camera-IMU time delay
-    sodo: torch.Tensor  # () odometer scale (frozen here)
+    sodo: torch.Tensor  # () odometer scale (frozen without the odometer)
     frame_td: torch.Tensor  # [N] per-frame time-delay base
     lm_invdepth: torch.Tensor  # [L]
     lm_ref: torch.Tensor  # [L] int anchor node index
@@ -109,23 +112,31 @@ def _zero_nodes(n, dtype, device) -> NavState:
 
 
 def empty_window(n_nodes: int, n_landmarks: int, dtype=torch.float64,
-                 device=None) -> Window:
+                 device=None, odo: bool = False) -> Window:
+    """``odo=True`` allocates odometer-augmented intervals (19 states,
+    ``ins/preintegration_odo.py``)."""
     device = resolve_device(device)
     N, L = n_nodes, n_landmarks
     kw = dict(dtype=dtype, device=device)
-    eye15 = torch.eye(NODE_DOF, **kw).expand(N - 1, NODE_DOF, NODE_DOF)
-    preint = PreintData(
+    dof = ODO_DOF if odo else NODE_DOF
+    eye = torch.eye(dof, **kw).expand(N - 1, dof, dof)
+    common = dict(
         dp=torch.zeros((N - 1, 3), **kw),
         dv=torch.zeros((N - 1, 3), **kw),
         dq=_identity_quats(N - 1, dtype, device),
-        jac=eye15.clone(),
-        cov=eye15.clone(),
+        jac=eye.clone(),
+        cov=eye.clone(),
         dt=torch.zeros(N - 1, **kw),
         sum_dt_pn=torch.zeros((N - 1, 3), **kw),
         bg_ref=torch.zeros((N - 1, 3), **kw),
         ba_ref=torch.zeros((N - 1, 3), **kw),
         end_state=_zero_nodes(N - 1, dtype, device),
     )
+    if odo:
+        preint = OdoPreintData(ds=torch.zeros((N - 1, 3), **kw),
+                               sodo_ref=torch.zeros(N - 1, **kw), **common)
+    else:
+        preint = PreintData(**common)
     nobool = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)  # noqa: E731
     return Window(
         nodes=_zero_nodes(N, dtype, device),

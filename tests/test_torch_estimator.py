@@ -26,7 +26,7 @@ import chip_smoke  # noqa: E402
 from test_torch_solver import one_torch_thread  # noqa: E402, F401
 
 from ic_gvins_tpu_torch.engine import estimator as port_est  # noqa: E402
-from ic_gvins_tpu_torch.engine.config import EngineConfig, OdoConfig  # noqa: E402
+from ic_gvins_tpu_torch.engine.config import EngineConfig  # noqa: E402
 from ic_gvins_tpu_torch.engine.estimator import TRACKING_NORMAL, Estimator  # noqa: E402
 from ic_gvins_tpu_torch.engine.pipeline import Pipeline  # noqa: E402
 
@@ -137,21 +137,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert Estimator(EngineConfig(), device="cpu").window.nodes.p.device.type == "cpu"
 
 
-@pytest.mark.parametrize("option", ["use_odo", "recenter_threshold", "add_odo", "set_mesh",
-                                    "save_checkpoint", "load_checkpoint"])
+@pytest.mark.parametrize("option", ["recenter_threshold", "set_mesh", "run_kaist_f32"])
 def test_unported_options_raise(option):
     """Options and entry points the port does not have refuse to run
     instead of being ignored."""
     with pytest.raises(NotImplementedError):
-        if option == "use_odo":
-            Estimator(EngineConfig(odo=OdoConfig(use_odo=True)), device="cpu")
-        elif option == "recenter_threshold":
+        if option == "recenter_threshold":
             Estimator(EngineConfig(recenter_threshold=20.0), device="cpu")
+        elif option == "set_mesh":
+            Estimator(EngineConfig(max_nodes=4, max_landmarks=4), device="cpu").set_mesh(None)
         else:
-            est = Estimator(EngineConfig(max_nodes=4, max_landmarks=4), device="cpu")
-            {"add_odo": lambda: est.add_odo(0.0, 1.0), "set_mesh": lambda: est.set_mesh(None),
-             "save_checkpoint": lambda: est.save_checkpoint("x"),
-             "load_checkpoint": lambda: est.load_checkpoint("x")}[option]()
+            from ic_gvins_tpu_torch.tools import run_kaist
+
+            run_kaist.main(["--data", "unused", "--f32", "--device", "cpu"])
 
 
 def test_states_and_map_point_types_are_the_reference_ones():

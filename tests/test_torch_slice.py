@@ -243,21 +243,22 @@ def test_committed_fixture_round_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing the port pulls in neither jax nor the JAX package, and
-    leaves TF32 off for matmuls and convolutions."""
+    """Importing every module of the port (the replay command
+    ``tools/run_kaist.py`` and the data, I/O and evaluation modules
+    included) pulls in neither jax nor the JAX package, and leaves TF32 off
+    for matmuls and convolutions."""
     code = (
-        "import sys, torch\n"
-        "import ic_gvins_tpu_torch, ic_gvins_tpu_torch.engine.frontend, "
-        "ic_gvins_tpu_torch.engine.keyframe, ic_gvins_tpu_torch.solver.lm, "
-        "ic_gvins_tpu_torch.factors.marginalization, ic_gvins_tpu_torch.convert, "
-        "ic_gvins_tpu_torch.vision.klt_cuda, ic_gvins_tpu_torch.vision.preprocess, "
-        "ic_gvins_tpu_torch.vision.ransac, ic_gvins_tpu_torch.device, "
-        "ic_gvins_tpu_torch.engine.estimator, ic_gvins_tpu_torch.engine.pipeline, "
-        "ic_gvins_tpu_torch.engine.config, ic_gvins_tpu_torch.common.earth, "
-        "ic_gvins_tpu_torch.common.angle, ic_gvins_tpu_torch.common.gpstime, "
-        "ic_gvins_tpu_torch.common.logging, ic_gvins_tpu_torch.data.simulator, "
-        "ic_gvins_tpu_torch.ins.mechanization\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ic_gvins_tpu')]\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import ic_gvins_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'engine.estimator', 'engine.pipeline', 'engine.outputs', 'engine.fileio',\n"
+        "        'engine.drawer', 'data.kaist', 'data.image', 'data.rosbag', 'eval.trajectory',\n"
+        "        'ins.preintegration_odo', 'tools.run_kaist', 'vision.klt_cuda'}\n"
+        "missing = {f'ic_gvins_tpu_torch.{n}' for n in need} - set(names)\n"
+        "assert not missing, missing\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ic_gvins_tpu')]\n"
         "assert not bad, bad\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

@@ -3,21 +3,30 @@
 ``Pipeline`` are held against: simulated sensor streams and what the JAX
 package's float64 ``Estimator`` (or ``Pipeline``) makes of them on the CPU.
 
-Two files:
+Three files:
 
 * ``tests/fixtures/torch_estimator_small.npz``: the window geometry of
   ``tests/test_estimator.py::small_cfg`` (16 nodes x 64 landmarks, 10 LM
   iterations) in that file's three scenarios (GINS 15 s, GVINS 10 s,
-  GNSS outage after 6 s of 12 s), and the 320 x 240 scene of
+  GNSS outage after 6 s of 12 s), the 320 x 240 scene of
   ``tests/test_pipeline.py`` through the JAX ``Pipeline`` (frames from the
-  numpy sprite renderer, so the port can render the same pixels);
+  numpy sprite renderer, so the port can render the same pixels), and
+  ``odo_small``: ``tests/test_odo_window.py``'s odometer configuration (16
+  nodes x 8 landmarks, 10 iterations) on 12 s of GNSS, IMU and a 50 Hz
+  wheel odometer;
 * ``tests/fixtures/torch_estimator_defaults.npz``: ``EngineConfig()`` (24
   nodes x 192 landmarks, 20 iterations, a 10-keyframe window) on 15 s of a
   car drive with IMU at 200 Hz, GNSS at 1 Hz and ideal tracks at 10 Hz,
   plus the truth camera poses and sprite landmarks from which
   ``chip_smoke.py`` renders 1278 x 1022 frames for the port's ``Pipeline``.
   The JAX ``Pipeline`` at that size is not run: an XLA:CPU replay of 150
-  full-size frames takes far longer than the rest of the tool.
+  full-size frames takes far longer than the rest of the tool;
+* ``tests/fixtures/torch_estimator_odo.npz``: scenario ``odo``, the
+  defaults scenario's streams with GNSS dropped after 9 s plus a 50 Hz
+  wheel odometer, through ``EngineConfig(odo=OdoConfig(use_odo=True))``.
+
+The odometer scenarios also store the checkpoint the JAX run saved after
+its middle event (``ckpt``, the pickle's bytes, and ``ckpt_event``).
 
 Each scenario stores its streams, its 200 Hz truth positions, the
 configuration as JSON, and the run's event log (``chip_smoke.feed``), stats
@@ -25,14 +34,16 @@ rows, trajectory and final window (``chip_smoke.summarize``). Each scenario
 runs in its own process (an XLA:CPU process that replays several
 estimators can crash its compiler), all at once.
 
-    python tools/make_torch_estimator_fixture.py            # both files, ~4 min on 8 cores
+    python tools/make_torch_estimator_fixture.py            # all files, ~5 min on 8 cores
     python tools/make_torch_estimator_fixture.py --scenario gins --out /tmp/gins.npz
 """
 
 import argparse
 import dataclasses
+import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -44,8 +55,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
-SMALL = ("gins", "gvins", "outage", "pipeline")
+SMALL = ("gins", "gvins", "outage", "pipeline", "odo_small")
 DEFAULTS = ("defaults",)
+ODO = ("odo",)
 # The JAX runs take their IMU slices from the Python buffer, which the port
 # copies: the C++ buffer computes a boundary sample's dt 1 ulp apart, and at
 # 10 Hz frames the keyframe test ``t - last_kf_t > track_max_interval``
@@ -65,7 +77,17 @@ ESTIMATOR_SCENARIOS = {
     # most of the 192 slots in use
     "defaults": dict(cfg=PY_BUFFER, duration=15.0, with_vision=True, seed=0, frame_rate=10.0,
                      n_landmarks=320, cam_ext=True),
+    # the defaults scenario's streams, GNSS only until 9 s, and a wheel
+    # odometer (tests/test_odo_window.py's scale and noise)
+    "odo": dict(cfg=PY_BUFFER, odo_cfg=dict(use_odo=True), duration=15.0, with_vision=True,
+                seed=0, frame_rate=10.0, n_landmarks=320, cam_ext=True, gnss_until=9.0,
+                odometer=True),
 }
+# tests/test_odo_window.py's configuration and odometer
+ODO_SMALL_CFG = dict(optimize_num_iterations=10, max_nodes=16, max_landmarks=8,
+                     optimize_windows_size=8, antlever=(0.0, 0.0, 0.0), **PY_BUFFER)
+ODO_SMALL_ODO = dict(use_odo=True, odo_vrw=0.03, sodo_prior_std=0.05)
+ODOMETER = dict(rate=50.0, sodo_true=0.03, noise_std=0.02)
 # sprite field of chip_smoke.py phase 6 (1278 x 1022 frames, focal 787)
 SPRITES = dict(n=900, lateral=24.0, depth_range=(7.0, 40.0))
 IMU_RATE = 200.0
@@ -86,6 +108,8 @@ def _cfg_json(cfg):
     out = {k: v for k, v in d.items() if v != base[k] and k not in ("cam", "odo", "imumodel")}
     if d["cam"] != base["cam"]:
         out["cam"] = d["cam"]
+    if d["odo"] != base["odo"]:
+        out["odo"] = d["odo"]
     return json.dumps(out)
 
 
@@ -134,6 +158,8 @@ def estimator_scenario(name):
 
     sc = ESTIMATOR_SCENARIOS[name]
     cfg = jconfig.EngineConfig(**sc["cfg"])
+    if "odo_cfg" in sc:
+        cfg.odo = jconfig.OdoConfig(**sc["odo_cfg"])
     duration, seed = sc["duration"], sc["seed"]
     params = sim.default_params(with_earth=cfg.iswithearth, lat_deg=cfg.track_ref_lat_deg)
     traj = sim.car_trajectory()
@@ -149,6 +175,8 @@ def estimator_scenario(name):
     s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
          "gnss_t": gt[keep], "gnss_p": np.asarray(gnss.p)[keep],
          "gnss_std": np.asarray(gnss.std)[keep], **_truth(traj, params, duration)}
+    if sc.get("odometer"):
+        s.update(_odometer(traj, params, duration, jax.random.fold_in(key, 7)))
     s["frame_t"] = np.zeros(0)
     if sc["with_vision"]:
         if sc.get("cam_ext"):  # the configured camera
@@ -185,8 +213,76 @@ def estimator_scenario(name):
     def on_frame(j):
         est.add_frame_observations(*chip_smoke.observations(s, j))
 
-    log = chip_smoke.feed(est, est, s, on_frame)
-    return s, {**log, **chip_smoke.summarize(est)}
+    return s, _run(est, s, on_frame)
+
+
+def _odometer(traj, params, duration, key):
+    from ic_gvins_tpu.data import simulator as sim
+
+    t, v = sim.simulate_odometer(traj, params, 0.0, duration, ODOMETER["rate"],
+                                 sodo_true=ODOMETER["sodo_true"],
+                                 noise_std=ODOMETER["noise_std"], key=key)
+    return {"odo_t": np.asarray(t), "odo_v": np.asarray(v)}
+
+
+class _NoJax(pickle.Unpickler):
+    """Loads a checkpoint only if it holds no object of JAX."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("jax", "jaxlib"):
+            raise pickle.UnpicklingError(f"checkpoint holds {module}.{name}")
+        return super().find_class(module, name)
+
+
+def _run(est, s, on_frame):
+    """Feed the JAX estimator the scenario; an odometer scenario also
+    saves the checkpoint after its middle event."""
+    extra = {}
+    on_event = None
+    if "odo_t" in s:
+        n_events = sum(kind in ("gnss", "frame") for kind, _ in chip_smoke.schedule(s))
+        ck = n_events // 2
+        path = os.path.join(tempfile.mkdtemp(prefix="ckpt_"), "ckpt.pkl")
+
+        def on_event(e):
+            if e == ck:
+                est.save_checkpoint(path)
+
+    log = chip_smoke.feed(est, est, s, on_frame, on_event=on_event)
+    if on_event is not None:
+        with open(path, "rb") as f:
+            raw = f.read()
+        _NoJax(io.BytesIO(raw)).load()
+        extra = {"ckpt": np.frombuffer(raw, np.uint8), "ckpt_event": np.int64(ck),
+                 "sodo": np.float64(est.window.sodo)}
+    return {**log, **chip_smoke.summarize(est), **extra}
+
+
+def odo_small_scenario():
+    """``tests/test_odo_window.py::_run_gins_odo``'s streams and
+    configuration over 12 s (the same keys and draws)."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from ic_gvins_tpu.data import simulator as sim
+    from ic_gvins_tpu.engine import config as jconfig
+    from ic_gvins_tpu.engine.estimator import Estimator
+
+    duration = 12.0
+    cfg = jconfig.EngineConfig(**ODO_SMALL_CFG, odo=jconfig.OdoConfig(**ODO_SMALL_ODO))
+    params = sim.default_params(with_earth=True, lat_deg=cfg.track_ref_lat_deg)
+    traj = sim.car_trajectory(speed=5.0)
+    ki, kg, ko = jax.random.split(jax.random.PRNGKey(0), 3)
+    imu = sim.simulate_imu(traj, params, 0.0, duration, IMU_RATE)
+    imu = sim.corrupt_imu(imu, params, ki, jnp.array([2e-4, -1e-4, 3e-4]),
+                          jnp.array([5e-3, -8e-3, 2e-3]))
+    gnss = sim.simulate_gnss(traj, params, jnp.zeros(3), 0.0, duration, 1.0, std=0.05, key=kg)
+    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
+         "gnss_t": np.asarray(gnss.time), "gnss_p": np.asarray(gnss.p),
+         "gnss_std": np.asarray(gnss.std), "frame_t": np.zeros(0),
+         **_odometer(traj, params, duration, ko), **_truth(traj, params, duration)}
+    est = Estimator(cfg)
+    return s, _run(est, s, None)
 
 
 def pipeline_scenario():
@@ -245,11 +341,13 @@ def pipeline_scenario():
 
 
 # the JAX tests' ATE windows: errors after t_min (s)
-ATE = {"gins": 5.0, "gvins": 5.0, "outage": 10.0, "pipeline": 4.0, "defaults": 5.0}
+ATE = {"gins": 5.0, "gvins": 5.0, "outage": 10.0, "pipeline": 4.0, "defaults": 5.0,
+       "odo_small": 5.0, "odo": 5.0}
 
 
 def run_one(name, out):
-    s, o = pipeline_scenario() if name == "pipeline" else estimator_scenario(name)
+    make = {"pipeline": pipeline_scenario, "odo_small": odo_small_scenario}
+    s, o = make[name]() if name in make else estimator_scenario(name)
     e = chip_smoke.trajectory_errors(o["traj_t"], o["traj_p"], s, ATE[name])
     o["ate_rmse"], o["err_max"] = np.sqrt(np.mean(e**2)), np.max(e)
     np.savez_compressed(out, **s, **{f"out/{k}": v for k, v in o.items()})
@@ -259,28 +357,40 @@ def run_one(name, out):
           f"max {float(o['err_max']):.4f} m", flush=True)
 
 
+FILES = (("torch_estimator_small.npz", SMALL), ("torch_estimator_defaults.npz", DEFAULTS),
+         ("torch_estimator_odo.npz", ODO))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", choices=SMALL + DEFAULTS)
+    ap.add_argument("--scenario", choices=SMALL + DEFAULTS + ODO)
     ap.add_argument("--out")
+    ap.add_argument("--only", nargs="+", choices=SMALL + DEFAULTS + ODO,
+                    help="rerun these scenarios; the files keep the others'")
     args = ap.parse_args()
     if args.scenario:
         run_one(args.scenario, args.out)
         return
+    names = args.only or SMALL + DEFAULTS + ODO
     work = tempfile.mkdtemp(prefix="estimator_fixture_")
     procs = {n: subprocess.Popen([sys.executable, __file__, "--scenario", n, "--out",
                                   os.path.join(work, n + ".npz")])
-             for n in SMALL + DEFAULTS}
+             for n in names}
     bad = [n for n, p in procs.items() if p.wait() != 0]
     if bad:
         raise SystemExit(f"scenarios failed: {bad}")
-    for fname, names in (("torch_estimator_small.npz", SMALL),
-                         ("torch_estimator_defaults.npz", DEFAULTS)):
+    for fname, in_file in FILES:
+        rerun = [n for n in in_file if n in names]
+        if not rerun:
+            continue
+        path = os.path.join(FIXTURES, fname)
         merged = {}
-        for n in names:
+        if os.path.exists(path):
+            with np.load(path) as z:
+                merged = {k: z[k] for k in z.files if k.split("/")[0] not in rerun}
+        for n in rerun:
             with np.load(os.path.join(work, n + ".npz")) as z:
                 merged.update({f"{n}/{k}": z[k] for k in z.files})
-        path = os.path.join(FIXTURES, fname)
         np.savez_compressed(path, **merged)
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
