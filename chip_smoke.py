@@ -12,7 +12,8 @@ window (preintegrate -> triangulate -> ``optimize_impl(iters=20)`` ->
 ``Estimator`` on sensor streams, the replay command on a recorded drive
 (CSV and PNG files), whose ``Pipeline`` tracks the camera frames, both
 with ``EngineConfig()``, and the ``Estimator`` with the wheel odometer
-and its checkpoints. Phases:
+and its checkpoints; then the simulator and the two commands that run on
+it, ``run_sim`` and ``run_urban``. Phases:
 
 1. the card's name and power limit; build the CUDA kernel (nvcc, sm_90a);
 2. KLT kernel vs its plain PyTorch version at slice shapes (200 features)
@@ -23,11 +24,14 @@ and its checkpoints. Phases:
    the histogram gate on a frame at a quarter of the brightness;
 4. the keyframe round, held against the JAX package's float64 results in
    ``tests/fixtures/torch_slice_24x192.npz`` (``tools/make_torch_fixture.py``);
-5. ``Estimator(EngineConfig())`` fed 15 s of IMU (200 Hz), GNSS (1 Hz) and
+5. ``Estimator(EngineConfig())`` unchanged, so with the C++ IMU buffer of
+   the port's native library, fed 15 s of IMU (200 Hz), GNSS (1 Hz) and
    ideal tracks (10 Hz) from ``tests/fixtures/torch_estimator_defaults.npz``,
-   held against the JAX ``Estimator``'s run stored there
-   (``tools/make_torch_estimator_fixture.py``): the same events, node
-   times, keyframes and LM steps, the trajectory within 1e-6 m / 1e-7 rad;
+   held against the JAX ``Estimator(EngineConfig())`` run stored there
+   (``defaults_native``, ``tools/make_torch_estimator_fixture.py``): the
+   same events, node times, keyframes and LM steps, the trajectory within
+   1e-6 m / 1e-7 rad. It prints where the JAX runs with the Python and the
+   C++ buffer part;
 6. the replay command ``python -m ic_gvins_tpu_torch.tools.run_kaist`` (its
    ``main``) on a KAIST-layout directory written from the same streams:
    IMU and GNSS as CSV (fixes in geodetic coordinates), 150 frames of
@@ -44,10 +48,26 @@ and its checkpoints. Phases:
    the same decisions, the trajectory within 1e-6 m / 1e-7 rad, the
    odometer scale within 1e-8; then the run resumed in a fresh estimator
    from its own checkpoint and from the JAX run's, both taken after the
-   middle event, within the same bounds of the run it continues.
+   middle event, within the same bounds of the run it continues;
+8. the simulator and its commands: (a) the port's simulator on the card
+   against ``tests/fixtures/torch_sim.npz`` (``tools/make_torch_sim_fixture.py``)
+   with the JAX draws: the seed-3 urban route and the time grids bit for
+   bit, the float64 streams within 1e-10 relative, a 320 x 240 full-frame
+   render within 1e-3 grey levels; (b) ``run_urban --gen`` at KAIST
+   urban38's 2154 s (its wall time and file size), and mechanizing the
+   clean increments of an urban stretch back to the truth; (c) ``run_sim
+   --vision --gnss-outage-time 20`` (30 s) under an ATE bound; (d)
+   ``run_urban`` replaying the JAX runner's 90 s drive
+   (``tests/fixtures/torch_urban90.npz``) through the ``Pipeline`` at full
+   width (320 x 240, 120 features, 20 x 160 window, 12 iterations) with a
+   GNSS outage: TRACKING_NORMAL, one KLT launch per tracked frame, ATE
+   bounds beside the JAX replay of the file, and its checkpoint resumed in
+   a fresh ``Estimator``; then the KLT kernel timed at that shape beside
+   its plain version and bound.
 
-Phases 3 to 7 run with the kernel's launch count set to 0 before each and
-read after it; the ``launches`` of the kernels line sums phases 3 and 6.
+Phases 3 to 8 run with the kernel's launch count set to 0 before each and
+read after it; the ``launches`` of the kernels line sums phases 3, 6 and
+8.
 Every phase raises on failure. Needs a CUDA device: without one it exits
 with code 1 and prints no result. Prints a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -68,6 +88,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_slice_24x192.npz")
 ESTIMATOR_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_defaults.npz")
 ODO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_odo.npz")
+SIM_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_sim.npz")
+URBAN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_urban90.npz")
 
 IMG_W, IMG_H = 1278, 1022  # engine default camera
 N_FEATURES = 200
@@ -132,6 +154,43 @@ T_BASE = 1.7e9  # s
 # Pipeline on rendered frames: tests/test_pipeline.py's ATE bound (after 4 s)
 PIPELINE_ATE = 0.45  # m
 PIPELINE_T_MIN = 4.0  # s
+# Simulator vs the JAX package's on the same draws: time grids and the
+# route's arrays bit for bit; the float64 streams to rounding (forward-mode
+# derivatives of the same closed forms, summed in another order), relative
+# to each array's largest entry; the rendered frame, float32 blobs summed in
+# batches where JAX adds them one by one, in grey levels.
+SIM_RTOL = 1e-10
+SIM_FRAME_ATOL = 1e-3  # grey levels
+SIM_EXACT = ("imu_time", "imu_dt", "gnss_time", "odo_t", "frame_t", "vis")
+SIM_CLOSE = ("imu_dtheta", "imu_dvel", "imu_dtheta_c", "imu_dvel_c", "truth_p", "truth_q",
+             "truth_v", "gnss_p", "odo_v", "landmarks", "uv")
+# Phase 8. Generation at KAIST urban38's length (s of data).
+URBAN38_S = 2154.0
+# Mechanizing the clean increments of the urban route from the truth: the
+# acceleration steps at segment junctions (a corner's onset), which the
+# quadrature does not resolve, leave a few mm over 30 s with an arc (the
+# CPU: 3.2 mm, 1.0e-4 m/s, 1.2e-5 rad over 80-110 s), where
+# tests/test_mechanization.py's smooth car drive keeps 2e-3 m.
+MECH_STRETCH = (80.0, 110.0)  # s, with the route's first arc
+MECH_POS, MECH_VEL, MECH_ATT = 1e-2, 1e-3, 1e-4  # m, m/s, rad
+# run_sim --vision --gnss-outage-time 20 (30 s, GNSS sigma 0.05 m): JAX's
+# recipe expects 0.08-0.15 m with GNSS throughout; vision bridges the last
+# 10 s here (the CPU: 0.194 m, max 0.595 m)
+RUN_SIM_ATE = 0.3  # m
+# run_urban replay of the JAX-written 90 s drive (torch_urban90.npz, the
+# JAX runner's replay flags): duration, one outage, one checkpoint (s)
+URBAN_S = 90.0
+URBAN_OUTAGE = (60.0, 75.0)
+URBAN_CKPT = 60.0
+# its ATE (errors after 10 s): the port on the CPU 0.560 m rms, 2.33 m max;
+# the JAX runner on this file 0.530 / 2.58 m (stored beside it), on 300 s
+# of the same drive 0.306 / 2.58 m. Both have a start-up transient of ~2 m
+# at 25-35 s, which the card's otherwise rounded sums can amplify.
+URBAN_ATE_RMSE = 1.0  # m
+URBAN_ATE_MAX = 4.0  # m
+# the checkpoint at 60 s resumed with IMU and GNSS to 90 s (the CPU: 0.213
+# m rms, 0.411 m max)
+URBAN_RESUME_ATE = 1.0  # m, max
 # ~0.1 s of spinning at 2 GHz: far longer than the host takes to enqueue
 # 50 calls of the KLT wrapper (~0.13 ms each on the slowest host seen)
 SPIN_CYCLES = 200_000_000
@@ -463,6 +522,58 @@ def two_view_scene(n, n_out, seed, noise=0.2):
     return uv0, uv1, is_out
 
 
+def sim_stretch(sp, ref, route, params, dev):
+    """A stretch of the simulator fixture (``tools/make_torch_sim_fixture.py``)
+    computed by the port on ``dev`` with the JAX draws of ``ref``: a dict of
+    numpy arrays under the fixture's names."""
+    import torch
+
+    from ic_gvins_tpu_torch.common import rotation as rot
+    from ic_gvins_tpu_torch.data import simulator as sim
+
+    t0, dur = sp["t0"], sp["duration"]
+    traj = sim.car_trajectory() if sp["traj"] == "car" else sim.urban_trajectory(route)
+    f64 = lambda x: torch.as_tensor(np.asarray(x, np.float64), device=dev)  # noqa: E731
+    imu = sim.simulate_imu(traj, params, t0, dur, sp["imu_rate"])
+    bad = sim.corrupt_imu(imu, params, sp["bg"], sp["ba"], noise=(ref["noise_g"], ref["noise_a"]))
+    gnss = sim.simulate_gnss(traj, params, sp["antlever"], t0, dur, sp["gnss_rate"],
+                             std=sp["gnss_std"], noise=ref["gnss_noise"])
+    odo_t, odo_v = sim.simulate_odometer(traj, params, t0, dur, sp["odo_rate"],
+                                         sodo_true=sp["sodo_true"], noise_std=sp["odo_noise"],
+                                         noise=ref["odo_noise"])
+    lms = sim.scatter_landmarks(traj, params, None, sp["n_landmarks"], t0, t0 + dur + 3.0,
+                                draws=(ref["lm_ts"], ref["lm_depth"], ref["lm_off"]))
+    n_frames = int(dur * sp["frame_rate"])
+    ftimes = sim.time_grid(t0, n_frames, sp["frame_rate"], first=1, device=dev)
+    ext_q = rot.matrix_to_quat(f64(sp["cam_r"]))
+    uv, vis = sim.project_landmarks(traj, params, lms, ftimes, sp["cam_p"], ext_q,
+                                    noise_std=sp["px_noise"], noise=ref["px_noise"])
+    st = sim.truth_state(traj, params, ftimes)
+    frame = sim.render_sprite_frame(tuple(sp["intr"]), tuple(sp["res"]), lms, ref["render_t_wc"],
+                                     ref["render_q_wc"])
+    out = dict(imu_time=imu.time, imu_dt=imu.dt, imu_dtheta=imu.dtheta, imu_dvel=imu.dvel,
+               imu_dtheta_c=bad.dtheta, imu_dvel_c=bad.dvel, gnss_time=gnss.time, gnss_p=gnss.p,
+               odo_t=odo_t, odo_v=odo_v, landmarks=lms, frame_t=ftimes, uv=uv, vis=vis,
+               truth_p=st.p, truth_q=st.q, truth_v=st.v, frame=frame)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def compare_sim(got, ref):
+    """Hold a stretch of the port (``sim_stretch``) against the fixture's:
+    raises on a difference; returns (worst relative error and its array,
+    frame error in grey levels)."""
+    for k in SIM_EXACT:
+        check(got[k].shape == ref[k].shape and np.array_equal(got[k], ref[k]),
+              f"simulator {k} differs from JAX")
+    errs = {k: rel_err(ref[k], got[k]) for k in SIM_CLOSE}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= SIM_RTOL, f"simulator {worst}: relative error {errs[worst]:.3g} "
+          f"> {SIM_RTOL}")
+    frame_err = float(np.max(np.abs(got["frame"] - ref["frame"])))
+    check(frame_err <= SIM_FRAME_ATOL, f"rendered frame {frame_err:.3g} grey levels from JAX")
+    return worst, errs[worst], frame_err
+
+
 def phase_build():
     from ic_gvins_tpu_torch.vision import klt_cuda
 
@@ -479,7 +590,7 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
-def klt_bound(work, n, pyr):
+def klt_bound(work, n, pyr, phase="phase 2"):
     """Roofline bound of one bidirectional KLT call from the work the
     kernel counted (``work`` [n, 2]: packed level passes and Gauss-Newton
     steps per feature): (ms, "bytes" or "operations"). Bytes: at each level
@@ -494,7 +605,7 @@ def klt_bound(work, n, pyr):
     nbytes = pixels + n * (8 + 8 + 1 + 8 + 4 + 1)
     flop = passes * FLOP_PER_PASS + steps * FLOP_PER_STEP
     t_bytes, t_flop = nbytes / PEAK_BYTES_S * 1e3, flop / PEAK_F32_FLOP_S * 1e3
-    log(f"phase 2 klt bound n={n}: level passes {per_level} (level 0 first), {steps} steps "
+    log(f"{phase} klt bound n={n}: level passes {per_level} (level 0 first), {steps} steps "
         f"({steps / max(passes, 1):.2f} per pass); {nbytes / 1e6:.3f} MB -> {t_bytes:.5f} ms "
         f"at 3.35 TB/s, {flop / 1e6:.1f} MFLOP -> {t_flop:.5f} ms at 67 TFLOP/s f32")
     return max(t_bytes, t_flop), "bytes" if t_bytes >= t_flop else "operations"
@@ -805,28 +916,51 @@ def stage_line(est, seconds, data_s):
             f"of data ({seconds / data_s:.3f} s per s)")
 
 
+def first_parting(a, b):
+    """The first event at which two runs' feed logs differ (events, node
+    times), or None."""
+    n = min(len(a["log"]), len(b["log"]))
+    for e in range(n):
+        if not (np.array_equal(a["log"][e], b["log"][e]) and np.array_equal(
+                a["log_node_t"][e], b["log_node_t"][e], equal_nan=True)):
+            return e
+    return None if len(a["log"]) == len(b["log"]) else n
+
+
 def phase_estimator(dev):
-    """Phase 5: the full-width Estimator on the defaults fixture's streams
-    against the JAX run stored beside them."""
+    """Phase 5: ``Estimator(EngineConfig())``, so with the C++ IMU buffer,
+    at full width on the defaults fixture's streams against the JAX run of
+    ``EngineConfig()`` stored beside them (``defaults_native``)."""
     import torch
+
+    from ic_gvins_tpu_torch.engine.estimator import _NativeImuBuffer
 
     fx = dict(np.load(ESTIMATOR_FIXTURE))
     s = scenario(fx, "defaults")
-    ref = {k[4:]: v for k, v in s.items() if k.startswith("out/")}
+    native = scenario(fx, "defaults_native")
+    ref = {k[4:]: v for k, v in native.items() if k.startswith("out/")}
+    py_ref = {k[4:]: v for k, v in s.items() if k.startswith("out/")}
+    part = first_parting(py_ref, ref)
+    log(f"phase 5: the JAX runs of these streams with the Python and the C++ IMU buffer part "
+        f"at event {part} of {len(ref['log'])} (within the first 40 events: "
+        f"{'yes' if part is not None and part < 40 else 'no'}); a port with only the Python "
+        f"buffer would part from EngineConfig()'s JAX run there")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    est, got = run_estimator(s, dev)
+    est, got = run_estimator({**s, "cfg_json": native["cfg_json"]}, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     cfg = est.cfg
+    check(cfg.use_native_imu_buffer and isinstance(est.imu, _NativeImuBuffer),
+          "EngineConfig() did not run the C++ IMU buffer")
     dp, dq = compare_estimator(got, ref, CARD_TRAJ_ATT_ATOL)
     e = trajectory_errors(got["traj_t"], got["traj_p"], s, 5.0)
     log(f"phase 5 estimator ({cfg.max_nodes} nodes x {cfg.max_landmarks} landmarks, f64, "
-        f"{cfg.optimize_num_iterations} iters, window {cfg.optimize_windows_size}): "
-        f"{len(got['stats'])} rounds, {int(got['log'][-1, 2])} keyframes, peak landmark slots "
-        f"{int(got['log'][:, 3].max())}, final state {est.state}; identical to JAX in events, "
-        f"node times, keyframes, LM steps; trajectory vs JAX {dp:.3g} m (<= {TRAJ_POS_ATOL}), "
-        f"{dq:.3g} rad (<= {CARD_TRAJ_ATT_ATOL}); "
+        f"{cfg.optimize_num_iterations} iters, window {cfg.optimize_windows_size}, C++ IMU "
+        f"buffer): {len(got['stats'])} rounds, {int(got['log'][-1, 2])} keyframes, peak landmark "
+        f"slots {int(got['log'][:, 3].max())}, final state {est.state}; identical to JAX in "
+        f"events, node times, keyframes, LM steps; trajectory vs JAX {dp:.3g} m (<= "
+        f"{TRAJ_POS_ATOL}), {dq:.3g} rad (<= {CARD_TRAJ_ATT_ATOL}); "
         f"ATE {np.sqrt(np.mean(e ** 2)):.4f} m (JAX {float(ref['ate_rmse']):.4f})")
     log("phase 5 " + stage_line(est, wall, float(s["imu_t"][-1])))
 
@@ -995,6 +1129,236 @@ def phase_odometer(dev, work):
         check(ds2 <= CARD_SODO_ATOL, f"odometer scale after the {name} checkpoint differs")
 
 
+def phase_simulator(dev):
+    """Phase 8 (a): the port's simulator on the card against the JAX
+    package's (``tests/fixtures/torch_sim.npz``) with the JAX draws: the
+    seed-3 urban route and three stretches."""
+    import torch
+
+    from ic_gvins_tpu_torch.data import simulator as sim
+
+    fx = dict(np.load(SIM_FIXTURE))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    route = sim.urban_route(seed=3, device=dev)
+    for k in route._fields:
+        v = getattr(route, k)
+        check(np.array_equal(v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v),
+                             fx["route/" + k]), f"urban route {k} differs from JAX")
+    params = sim.default_params(device=dev)
+    lines = []
+    for name in ("car", "urban_start", "urban_arc"):
+        ref = scenario(fx, name)
+        sp = json.loads(str(ref["spec"]))
+        worst, err, frame_err = compare_sim(sim_stretch(sp, ref, route, params, dev), ref)
+        lines.append(f"{name} ({sp['t0']} s + {sp['duration']} s at {sp['imu_rate']:.0f} Hz): "
+                     f"worst {worst} {err:.3g}, frame {frame_err:.3g} grey levels")
+    torch.cuda.synchronize()
+    log(f"phase 8 simulator vs JAX ({time.perf_counter() - t0:.2f} s): route of seed 3 "
+        f"({len(route.t0)} segments) bit-equal; time grids bit-equal; " + "; ".join(lines)
+        + f" (<= {SIM_RTOL} relative, <= {SIM_FRAME_ATOL} grey levels)")
+
+
+def phase_generate(dev, work):
+    """Phase 8 (b): ``run_urban --gen`` at urban38's 2154 s on the card, and
+    the self-check that mechanizing the port's clean increments over an
+    urban stretch reproduces the truth."""
+    import torch
+
+    from ic_gvins_tpu_torch.data import simulator as sim
+    from ic_gvins_tpu_torch.ins import mechanization as mech
+    from ic_gvins_tpu_torch.tools import run_urban
+
+    out = os.path.join(work, "urban38")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(printed):
+        info = run_urban.main(["--gen", "--duration", str(URBAN38_S), "--out", out,
+                               "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    log("phase 8 run_urban --gen printed: " + printed.getvalue().strip().replace("\n", "; "))
+    with np.load(os.path.join(out, "sensors.npz")) as d:
+        shapes = {k: d[k].shape for k in d.files}
+        finite = all(np.all(np.isfinite(d[k])) for k in d.files)
+        route_m = float(d["route_length"])
+    n_imu = int(round(URBAN38_S * 100.0)) + 1
+    log(f"phase 8 urban38 generation: {wall:.2f} s of wall for {URBAN38_S:.0f} s of data "
+        f"(IMU {info['imu_s']:.2f} s, all streams {info['generate_s']:.2f} s on {dev}, "
+        f"writing {info['write_s']:.2f} s), {info['bytes'] / 1e6:.1f} MB; IMU "
+        f"{shapes['imu_time'][0] - 1} samples, {shapes['frame_times'][0]} frame poses, "
+        f"landmark bins {shapes['lm_bins']}, route {route_m:.0f} m")
+    check(finite, "generated streams are not finite")
+    check(shapes["imu_time"] == (n_imu,) and shapes["imu_dtheta"] == (n_imu, 3),
+          "generated IMU has the wrong shape")
+    check(shapes["frame_p"] == (shapes["frame_times"][0], 3), "frame poses misshapen")
+
+    # mechanize the clean increments of an urban stretch from the truth
+    route = sim.urban_route(seed=3, device=dev)
+    traj, params = sim.urban_trajectory(route), sim.default_params(device=dev)
+    a, b = MECH_STRETCH
+    imu = sim.simulate_imu(traj, params, a, b - a, 100.0)
+    s0 = sim.truth_state(traj, params, torch.tensor(a, dtype=torch.float64, device=dev))
+    t0 = time.perf_counter()
+    end = mech.mechanize_scan(params, s0, imu).index(-1)
+    truth = sim.truth_state(traj, params, imu.time[-1])
+    dp = float(torch.linalg.norm(end.p - truth.p))
+    dv = float(torch.linalg.norm(end.v - truth.v))
+    from ic_gvins_tpu_torch.common import rotation as rot
+
+    da = float(torch.linalg.norm(rot.quat_to_rotvec(rot.quat_mul(rot.quat_inv(end.q), truth.q))))
+    log(f"phase 8 mechanizing the clean increments of {a:.0f}-{b:.0f} s at 100 Hz "
+        f"({time.perf_counter() - t0:.2f} s): end {dp:.3g} m, {dv:.3g} m/s, {da:.3g} rad from "
+        f"the truth (<= {MECH_POS} m, {MECH_VEL} m/s, {MECH_ATT} rad)")
+    check(dp <= MECH_POS and dv <= MECH_VEL and da <= MECH_ATT,
+          "mechanized clean increments leave the truth")
+
+
+def phase_run_sim(dev, work):
+    """Phase 8 (c): ``run_sim --vision --gnss-outage-time 20`` at its 30 s."""
+    from ic_gvins_tpu_torch.engine.estimator import TRACKING_NORMAL
+    from ic_gvins_tpu_torch.tools import run_sim
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(printed):
+        res = run_sim.main(["--vision", "--gnss-outage-time", "20", "--out",
+                            os.path.join(work, "sim"), "--device", str(dev)])
+    log(f"phase 8 run_sim ({time.perf_counter() - t0:.1f} s): " + printed.getvalue().strip())
+    check(res["state"] == TRACKING_NORMAL, f"run_sim ended in state {res['state']}")
+    check(res["ate_rmse_m"] < RUN_SIM_ATE, f"run_sim ATE {res['ate_rmse_m']} m >= {RUN_SIM_ATE}")
+
+
+def klt_urban(pipe, sensors, dev):
+    """The KLT kernel at the urban replay's shape: the last two rendered
+    frames' pyramids and the front end's feature slots (120, 320 x 240, 4
+    images): (max |kernel - plain| px, kernel ms on the card, plain ms,
+    bound ms, bound_by)."""
+    import torch
+
+    from ic_gvins_tpu_torch.data.simulator import render_sprite_frame_np
+    from ic_gvins_tpu_torch.engine.frontend import prep_frame
+    from ic_gvins_tpu_torch.tools.run_urban import INTR, RES
+    from ic_gvins_tpu_torch.vision import klt, klt_cuda
+
+    fe = pipe.frontend
+    with np.load(sensors) as d:
+        ft, fp, fq, bins, bin_dt = (d["frame_times"], d["frame_p"], d["frame_qwc"],
+                                    d["lm_bins"], float(d["bin_dt"]))
+    pyrs = []
+    for fi in (len(ft) - 2, len(ft) - 1):
+        b = int(ft[fi] // bin_dt)
+        lms = np.concatenate([bins[max(b - 1, 0)], bins[b], bins[b + 1]])
+        img = render_sprite_frame_np(INTR, RES, lms, fp[fi], fq[fi])
+        pyrs.append(prep_frame(torch.as_tensor(img, device=dev), fe.levels, False))
+    pts = torch.as_tensor(fe.pts, device=dev)
+    args = (pyrs[0], pyrs[1], pts, pts, torch.as_tensor(fe.valid, device=dev))
+    pk, ok_k, _, work = klt_cuda.lk_track_bidirectional_counted(*args)
+    pp, ok_p, _ = klt.lk_track_bidirectional(*args)
+    both = ok_k & ok_p
+    err = float((pk - pp).abs()[both].max()) if bool(both.any()) else 0.0
+    check(err <= KLT_PTS_ATOL, "KLT kernel disagrees with the plain version at the urban shape")
+    check(float((ok_k == ok_p).float().mean()) >= KLT_OK_AGREE, "KLT ok flags disagree (urban)")
+    bound_ms, bound_by = klt_bound(work, len(pts), pyrs[0], "phase 8")
+    kernel = lambda: klt_cuda.lk_track_bidirectional(*args)  # noqa: E731
+    plain = lambda: klt.lk_track_bidirectional(*args)  # noqa: E731
+    for _ in range(3):
+        kernel()
+    t_p = [cuda_ms(plain, 10)]
+    t_k = [cuda_ms(kernel, 50, queue_ahead=True) for _ in range(2)]
+    t_p.append(cuda_ms(plain, 10))
+    return err, float(np.mean(t_k)), float(np.mean(t_p)), bound_ms, bound_by
+
+
+def phase_urban(dev, work):
+    """Phase 8 (d): ``run_urban`` replaying the JAX-written 90 s drive of
+    ``tests/fixtures/torch_urban90.npz`` through the ``Pipeline`` at full
+    width (120 features, 160 landmarks, 12 iterations), with an outage and
+    a checkpoint, beside the JAX replay of the same file stored there; then
+    the checkpoint resumed in a fresh ``Estimator`` fed the IMU and GNSS
+    after it. Returns (KLT launches, the kernel's numbers at the urban
+    shape)."""
+    import torch
+
+    from ic_gvins_tpu_torch.engine.estimator import TRACKING_NORMAL, Estimator
+    from ic_gvins_tpu_torch.tools import run_urban
+    from ic_gvins_tpu_torch.vision import klt_cuda
+
+    out = os.path.join(work, "urban")
+    os.makedirs(out)
+    sensors = os.path.join(out, "sensors.npz")
+    with np.load(URBAN_FIXTURE) as z:
+        jax_res = {k[4:]: z[k] for k in z.files if k.startswith("jax/")}
+        np.savez(sensors, **{k: z[k] for k in z.files if not k.startswith("jax/")})
+    argv = ["--duration", str(URBAN_S), "--outages", *map(str, URBAN_OUTAGE),
+            "--checkpoint-every", str(URBAN_CKPT), "--sensors", sensors, "--out", out,
+            "--device", str(dev)]
+    klt_cuda.lk_track_bidirectional.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with watch_pipeline() as seen, redirect_stdout(printed):
+        res = run_urban.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = klt_cuda.lk_track_bidirectional.launches
+    pipe, tracked = seen["pipe"], seen["tracked"]
+    est = pipe.est
+    for line in printed.getvalue().splitlines():
+        if line.startswith('{"sim_t"'):
+            log("phase 8 run_urban progress: " + line)
+    fm = np.asarray(pipe.frame_ms)
+    log(f"phase 8 run_urban {URBAN_S:.0f} s ({res['frames']} frames of 320x240, "
+        f"{est.cfg.track_max_features} features, {est.cfg.max_nodes} nodes x "
+        f"{est.cfg.max_landmarks} landmarks, {est.cfg.optimize_num_iterations} iters, GNSS out "
+        f"{URBAN_OUTAGE[0]:.0f}-{URBAN_OUTAGE[1]:.0f} s): final state {est.state} (== "
+        f"{TRACKING_NORMAL}), {len(est.stats)} rounds, {est.n_keyframes} keyframes, "
+        f"{len(est.lm_slot)} landmark slots; KLT launches {launches} for {tracked} tracked "
+        f"frames; ATE rmse {res['ate_rmse_m']:.4f} m (< {URBAN_ATE_RMSE}; JAX on this file "
+        f"{float(jax_res['ate_rmse_m']):.4f}), max {res['ate_max_m']:.4f} m (< "
+        f"{URBAN_ATE_MAX}; JAX {float(jax_res['ate_max_m']):.4f}), in and after the outage "
+        f"max {res['ate_max_outage_m']:.4f} m (JAX {float(jax_res['ate_max_outage_m']):.4f}); "
+        f"route {res['route_length_m']:.0f} m")
+    log(f"phase 8 run_urban front end ms per frame: first {fm[0]:.2f}, median "
+        f"{np.median(fm[1:]):.2f}, max {fm[1:].max():.2f}; frame wall mean (render + track + "
+        f"estimator) {res['frame_wall_mean_ms']:.2f} ms; " + stage_line(est, wall, URBAN_S))
+    check(est.state == TRACKING_NORMAL, "the urban replay did not reach TRACKING_NORMAL")
+    check(tracked > 0 and launches == tracked, "the KLT kernel was not launched once per "
+          "tracked frame in the urban replay")
+    check(res["ate_rmse_m"] < URBAN_ATE_RMSE and res["ate_max_m"] < URBAN_ATE_MAX,
+          "urban replay ATE over its bound")
+    for name in ("result.json", "trajectory.npz", "ckpt.npz"):
+        check(os.path.exists(os.path.join(out, name)), f"run_urban wrote no {name}")
+
+    # the checkpoint, resumed in a fresh estimator fed the IMU and GNSS after it
+    d = dict(np.load(sensors))
+    est2 = Estimator(run_urban.urban_config(run_urban.build_parser().parse_args(argv),
+                                            d["ext_q"]), device=dev)
+    est2.load_checkpoint(os.path.join(out, "ckpt.npz"))
+    t_ck = est2.imu.time[-1]
+    n_ck = len(est2.traj_times)
+    times, ps, _ = est.trajectory()
+    check(n_ck > 0 and np.array_equal(np.asarray(est2.traj_times), times[:n_ck])
+          and np.array_equal(np.stack(est2.traj_p), ps[:n_ck]),
+          "the checkpoint's trajectory is not the run's")
+    gi = int(np.searchsorted(d["gnss_time"], t_ck, side="right"))
+    for k in range(int(np.searchsorted(d["imu_time"], t_ck, side="right")), len(d["imu_time"])):
+        t = float(d["imu_time"][k])
+        est2.add_imu(t, float(d["imu_dt"][k]), d["imu_dtheta"][k], d["imu_dvel"][k])
+        while gi < len(d["gnss_time"]) and d["gnss_time"][gi] <= t:
+            est2.add_gnss(float(d["gnss_time"][gi]), d["gnss_p"][gi], d["gnss_std"][gi])
+            gi += 1
+    t2, p2, _ = est2.trajectory()
+    sel = t2 > t_ck
+    truth_at = run_urban.truth_interp(d["frame_times"], d["frame_p"])
+    err2 = np.linalg.norm(p2[sel] - truth_at(t2[sel]), axis=1)
+    log(f"phase 8 resumed from the checkpoint at {t_ck:.2f} s ({n_ck} trajectory entries, "
+        f"{est2.n_nodes} nodes): {int(sel.sum())} new entries to {t2[-1]:.1f} s from IMU and "
+        f"GNSS, state {est2.state}, ATE rmse {rms(err2):.4f} m, max {err2.max():.4f} m "
+        f"(< {URBAN_RESUME_ATE})")
+    check(sel.sum() > 0 and err2.max() < URBAN_RESUME_ATE, "the resumed estimator lost the truth")
+    return launches, klt_urban(pipe, sensors, dev)
+
+
 def main():
     import torch
 
@@ -1002,7 +1366,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if not os.path.isdir(os.path.join(ROOT, "ic_gvins_tpu_torch")) or not all(
-            os.path.exists(f) for f in (FIXTURE, ESTIMATOR_FIXTURE, ODO_FIXTURE)):
+            os.path.exists(f) for f in (FIXTURE, ESTIMATOR_FIXTURE, ODO_FIXTURE, SIM_FIXTURE,
+                                        URBAN_FIXTURE)):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
@@ -1029,10 +1394,20 @@ def main():
     try:
         launches_pipeline = phase_pipeline(dev, work)
         phase_odometer(dev, work)
+        phase_simulator(dev)
+        phase_generate(dev, work)
+        phase_run_sim(dev, work)
+        launches_urban, (err_u, ms_u, plain_u, bound_u, by_u) = phase_urban(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    launches = launches_frontend + launches_pipeline
-    log(f"klt launches: frontend {launches_frontend}, replay {launches_pipeline}")
+    log(f"phase 8 klt at the urban replay's shape (320x240, 120 feature slots, 4 images): "
+        f"kernel {ms_u:.4f} ms on the card, plain {plain_u:.4f} ms, bound {bound_u:.5f} ms "
+        f"({by_u}), max |kernel - plain| {err_u:.3g} px")
+    klt_stats.update(ms_urban=ms_u, plain_ms_urban=plain_u, bound_ms_urban=bound_u,
+                     max_abs_err=max(klt_stats["max_abs_err"], err_u))
+    launches = launches_frontend + launches_pipeline + launches_urban
+    log(f"klt launches: frontend {launches_frontend}, replay {launches_pipeline}, "
+        f"urban replay {launches_urban}")
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s, the build included")
 
     print(json.dumps({"kernels": [{

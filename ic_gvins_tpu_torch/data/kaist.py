@@ -15,7 +15,8 @@ Conversions as the reference's ingest: rate -> increment (dtheta = w dt,
 dvel = a dt, ``fusion_ros.cc:145-150``); geodetic -> the local NED frame
 anchored at the first fix (``Earth::global2local``, ``ic_gvins.cc:239``,
 here the port's ``common/earth.py`` on CPU float64 tensors); ns -> s.
-Tables load with numpy, and the loaders return the port's ``ImuSeq`` /
+Tables load with the native parser (``native/csv.cpp``, as the JAX
+package's loader), and the loaders return the port's ``ImuSeq`` /
 ``Gnss`` containers holding float64 numpy arrays.
 """
 
@@ -26,11 +27,17 @@ import numpy as np
 import torch
 
 from ..common import earth
+from ..native import load_numeric_table
 from .types import Gnss, ImuSeq
 
 
 def _load_table(path: str, delimiter=",") -> np.ndarray:
-    return np.loadtxt(path, delimiter=delimiter, ndmin=2)
+    """A numeric table parsed by the native library (``native/csv.cpp``);
+    a ragged table goes to ``np.loadtxt``, which raises its usual error."""
+    out = load_numeric_table(path)
+    if out is None:
+        out = np.loadtxt(path, delimiter=delimiter, ndmin=2)
+    return out
 
 
 @dataclass

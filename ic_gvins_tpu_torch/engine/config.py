@@ -6,9 +6,9 @@ Every key of ``config/gvins.yaml`` has an equivalent here, plus the
 hard-coded constants the survey flagged as "really config"
 (``ic_gvins.h:120-141``, ``tracking.h:112-115``, ``misc.h:72-76``,
 ``mappoint.h:51-53``). The port's ``Estimator`` refuses the option it
-has not ported (``recenter_threshold > 0``); it always uses the Python
-IMU buffer (``use_native_imu_buffer`` selects the JAX package's C++ one,
-which holds the same samples).
+has not ported (``recenter_threshold > 0``). ``use_native_imu_buffer``
+picks the C++ IMU buffer of the port's native library (the default, as in
+the JAX package) or the Python one.
 """
 
 from __future__ import annotations

@@ -28,8 +28,10 @@ pickle layout, so either package resumes the other's checkpoints.
 
 Not ported, and refused where asked for: landmark-sharded rounds
 (``set_mesh``) and window re-centering (``recenter_threshold > 0``; the
-port runs in float64, where the JAX package turns it off). The JAX
-package's C++ IMU buffer is replaced by the Python one.
+port runs in float64, where the JAX package turns it off; ``n_recenters``
+stays 0). ``cfg.use_native_imu_buffer`` picks the C++ IMU buffer of the
+port's native library (the default) or the Python one, as in the JAX
+package; a C++ buffer that cannot be built raises.
 """
 
 import bisect
@@ -55,6 +57,7 @@ from ..factors.marginalization import (
 from ..ins import mechanization as mech
 from ..ins.preintegration import preintegrate
 from ..ins.preintegration_odo import OdoParams, preintegrate_odo
+from ..native import NativeImuBuffer
 from ..solver import lm as lm_mod
 from ..solver.assembly import eval_reproj_res, obs_mask
 from ..solver.window import SolverConfig, empty_prior, empty_window, make_init_prior
@@ -257,6 +260,57 @@ class _ImuBuffer:
                 np.stack(self.dtheta), np.stack(self.dvel))
 
 
+class _NativeImuBuffer:
+    """The C++ IMU buffer (``native/imu_buffer.cpp``): the increments, the
+    gap filling and the interpolated slices live in C++, and a float list
+    mirrors the stamps for the host's coverage checks. The interface of
+    :class:`_ImuBuffer`."""
+
+    def __init__(self, nominal_dt: float):
+        self._nat = NativeImuBuffer(nominal_dt)
+        self._nominal = float(nominal_dt)
+        self.time: list[float] = []
+
+    def append(self, t, dt, dth, dv):
+        added = int(self._nat.append(t, dt, dth, dv))
+        if added > 1 and self.time:
+            # the buffer filled a gap of the stamps before this sample
+            last = self.time[-1]
+            for k in range(added - 1):
+                self.time.append(last + (k + 1) * self._nominal)
+        self.time.append(float(t))
+
+    def drop_before(self, t):
+        self._nat.drop_before(t)
+        n_keep = len(self._nat)
+        if n_keep < len(self.time):
+            del self.time[: len(self.time) - n_keep]
+
+    def arrays(self):
+        return self._nat.export_arrays()
+
+    def slice_between_np(self, t0, t1, min_dt=1e-4):
+        """The C++ slice of (t0, t1] at its real length (the seed, every
+        stored sample at most once and the tail bound its size)."""
+        time, dt, dth, dv, n = self._nat.slice_between(t0, t1, len(self._nat) + 2, min_dt)
+        return time[:n], dt[:n], dth[:n], dv[:n]
+
+
+def _make_imu_buffer(cfg: EngineConfig):
+    """The C++ buffer when ``cfg.use_native_imu_buffer`` (the default), else
+    the Python one. Where the JAX package falls back to Python when the
+    native library cannot be built, this raises."""
+    if not cfg.use_native_imu_buffer:
+        return _ImuBuffer()
+    try:
+        return _NativeImuBuffer(1.0 / cfg.imudatarate)
+    except (OSError, RuntimeError) as e:
+        raise RuntimeError(
+            "use_native_imu_buffer=True needs the native library, which could not be "
+            "built or loaded; set use_native_imu_buffer=False for the Python buffer"
+        ) from e
+
+
 class Estimator:
     """INS-centric GNSS(+Visual) fusion engine."""
 
@@ -305,12 +359,13 @@ class Estimator:
         self.odo_v: list[float] = []
 
         self.state = INITIALIZING
-        self.imu = _ImuBuffer()
+        self.imu = _make_imu_buffer(cfg)
         self.gnss_queue: list[tuple[float, np.ndarray, np.ndarray]] = []
         # events (GNSS fixes / tracked frames) that arrived ahead of IMU
         # coverage wait here and are replayed by add_imu, in time order
         self.pending_events: list[tuple] = []
         self.imu_repaired = 0  # IMU samples synthesized into rate gaps
+        self.n_recenters = 0  # window shifts: always 0 (re-centering is not ported)
         self.dropped_gnss = 0  # fixes lost despite the capacity slide
         # geodetic anchor of the local frame (lat rad, lon rad, h m); when
         # set, Earth rate + gravity derive from position
@@ -489,7 +544,7 @@ class Estimator:
             dropped_gnss=self.dropped_gnss,
             origin_blh=self.origin_blh,
             gravity=_host(self.params.gravity),
-            n_recenters=0,  # re-centering is not ported
+            n_recenters=self.n_recenters,
             gins_chi2=list(self._gins_chi2),
             align_bg=self._align_bg,
             align_rollpitch=self._align_rollpitch,
@@ -519,7 +574,7 @@ class Estimator:
             self.last_node_state = _unflatten(self.window.nodes.index(0),
                                               state["last_node_state"], dev)
             self.cur_state = self.last_node_state
-        self.imu = _ImuBuffer()
+        self.imu = _make_imu_buffer(self.cfg)
         for t, dt, dth, dv in zip(*state["imu"]):
             self.imu.append(float(t), float(dt), np.asarray(dth), np.asarray(dv))
         self.odo_t, self.odo_v = state.get("odo", ([], []))

@@ -4,109 +4,27 @@
 
 Rows of doubles are streamed as whitespace text with fixed precision or as
 packed little-endian float64 (``filesaver.cc:51-66``) and read back row by
-row. ``FileSaver`` / ``FileLoader`` are the Python classes, byte for byte
-the JAX package's Python backend (its native C++ backend is not ported).
+row. As in the JAX package, ``FileSaver`` / ``FileLoader`` return the C++
+writer and reader of the port's native library (``native/fileio.cpp``),
+byte for byte the JAX package's Python writer; unlike it, they raise when
+that library cannot be built instead of falling back to Python classes.
 """
 
-import os
-
-import numpy as np
+from ..native import NativeFileLoader, NativeFileSaver
 
 TEXT = 0
 BINARY = 1
 
 
-class FileSaver:
-    """Row-oriented columnar writer (``filesaver.cc:51-66``).
-
-    ``dump(row)`` writes one row of ``columns`` doubles; TEXT rows are
-    whitespace-separated with fixed precision, BINARY rows are packed
-    little-endian float64.
-    """
-
-    def __init__(self, path: str, columns: int, mode: int = TEXT):
-        if mode not in (TEXT, BINARY):
-            raise ValueError(f"bad mode {mode}")
-        self.path = path
-        self.columns = int(columns)
-        self.mode = mode
-        d = os.path.dirname(path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        self._f = open(path, "w" if mode == TEXT else "wb")
-
-    def dump(self, row) -> None:
-        row = np.asarray(row, np.float64).reshape(-1)
-        if row.size != self.columns:
-            raise ValueError(f"row has {row.size} values, expected {self.columns}")
-        if self.mode == TEXT:
-            self._f.write(" ".join(f"{x:.9f}" for x in row) + "\n")
-        else:
-            self._f.write(row.astype("<f8").tobytes())
-
-    def dumpn(self, rows) -> None:
-        for r in rows:
-            self.dump(r)
-
-    def flush(self) -> None:
-        self._f.flush()
-
-    def close(self) -> None:
-        self._f.flush()
-        self._f.close()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
+def FileSaver(path: str, columns: int, mode: int = TEXT):
+    """The native columnar writer (``native.NativeFileSaver``)."""
+    if mode not in (TEXT, BINARY):
+        raise ValueError(f"bad mode {mode}")
+    return NativeFileSaver(path, columns, mode)
 
 
-class FileLoader:
-    """Row-oriented columnar reader (``fileloader.cc``): ``load()`` returns
-    the next row or None at EOF; ``load_all()`` returns an [n, columns]
-    array. Text rows may carry ``#`` comments (skipped)."""
-
-    def __init__(self, path: str, columns: int, mode: int = TEXT):
-        if mode not in (TEXT, BINARY):
-            raise ValueError(f"bad mode {mode}")
-        self.path = path
-        self.columns = int(columns)
-        self.mode = mode
-        self._f = open(path, "r" if mode == TEXT else "rb")
-
-    def load(self):
-        if self.mode == TEXT:
-            for line in self._f:
-                line = line.split("#", 1)[0].strip()
-                if not line:
-                    continue
-                vals = np.array([float(x) for x in line.split()], np.float64)
-                if vals.size != self.columns:
-                    raise ValueError(
-                        f"{self.path}: row has {vals.size} values, "
-                        f"expected {self.columns}"
-                    )
-                return vals
-            return None
-        buf = self._f.read(8 * self.columns)
-        if len(buf) < 8 * self.columns:
-            return None
-        return np.frombuffer(buf, "<f8").copy()
-
-    def load_all(self) -> np.ndarray:
-        rows = []
-        while (r := self.load()) is not None:
-            rows.append(r)
-        return (
-            np.stack(rows) if rows else np.zeros((0, self.columns), np.float64)
-        )
-
-    def close(self) -> None:
-        self._f.close()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
+def FileLoader(path: str, columns: int, mode: int = TEXT):
+    """The native columnar reader (``native.NativeFileLoader``)."""
+    if mode not in (TEXT, BINARY):
+        raise ValueError(f"bad mode {mode}")
+    return NativeFileLoader(path, columns, mode)

@@ -243,10 +243,10 @@ def test_committed_fixture_round_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the replay command
-    ``tools/run_kaist.py`` and the data, I/O and evaluation modules
-    included) pulls in neither jax nor the JAX package, and leaves TF32 off
-    for matmuls and convolutions."""
+    """Importing every module of the port (the commands under ``tools/``,
+    the simulator, the native library's loader and the data, I/O and
+    evaluation modules included) pulls in neither jax nor the JAX package,
+    and leaves TF32 off for matmuls and convolutions."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import ic_gvins_tpu_torch as pkg\n"
@@ -255,7 +255,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "need = {'engine.estimator', 'engine.pipeline', 'engine.outputs', 'engine.fileio',\n"
         "        'engine.drawer', 'data.kaist', 'data.image', 'data.rosbag', 'eval.trajectory',\n"
-        "        'ins.preintegration_odo', 'tools.run_kaist', 'vision.klt_cuda'}\n"
+        "        'ins.preintegration_odo', 'tools.run_kaist', 'vision.klt_cuda', 'native',\n"
+        "        'data.simulator', 'tools.sequence', 'tools.run_sim', 'tools.run_urban',\n"
+        "        'common.timecost'}\n"
         "missing = {f'ic_gvins_tpu_torch.{n}' for n in need} - set(names)\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ic_gvins_tpu')]\n"

@@ -13,14 +13,20 @@ Three files:
   numpy sprite renderer, so the port can render the same pixels), and
   ``odo_small``: ``tests/test_odo_window.py``'s odometer configuration (16
   nodes x 8 landmarks, 10 iterations) on 12 s of GNSS, IMU and a 50 Hz
-  wheel odometer;
+  wheel odometer; and ``gap_native``: the GINS scenario's configuration
+  with the JAX package's C++ IMU buffer, on 12 s with a 0.25 s IMU dropout
+  (``run_sequence``'s ``imu_gap``; the streams stored as fed, the samples
+  of the gap left out and the next one spanning it);
 * ``tests/fixtures/torch_estimator_defaults.npz``: ``EngineConfig()`` (24
   nodes x 192 landmarks, 20 iterations, a 10-keyframe window) on 15 s of a
   car drive with IMU at 200 Hz, GNSS at 1 Hz and ideal tracks at 10 Hz,
   plus the truth camera poses and sprite landmarks from which
   ``chip_smoke.py`` renders 1278 x 1022 frames for the port's ``Pipeline``.
   The JAX ``Pipeline`` at that size is not run: an XLA:CPU replay of 150
-  full-size frames takes far longer than the rest of the tool;
+  full-size frames takes far longer than the rest of the tool. Scenario
+  ``defaults_native`` is the same streams through ``EngineConfig()``
+  unchanged, so with the C++ IMU buffer; it stores only its configuration
+  and the run (the streams are ``defaults``');
 * ``tests/fixtures/torch_estimator_odo.npz``: scenario ``odo``, the
   defaults scenario's streams with GNSS dropped after 9 s plus a 50 Hz
   wheel odometer, through ``EngineConfig(odo=OdoConfig(use_odo=True))``.
@@ -55,17 +61,19 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
-SMALL = ("gins", "gvins", "outage", "pipeline", "odo_small")
-DEFAULTS = ("defaults",)
+SMALL = ("gins", "gvins", "outage", "pipeline", "odo_small", "gap_native")
+DEFAULTS = ("defaults", "defaults_native")
 ODO = ("odo",)
-# The JAX runs take their IMU slices from the Python buffer, which the port
-# copies: the C++ buffer computes a boundary sample's dt 1 ulp apart, and at
-# 10 Hz frames the keyframe test ``t - last_kf_t > track_max_interval``
-# (0.5 s) compares numbers that are equal but for such ulps.
+# Most JAX runs take their IMU slices from the Python buffer: the C++ buffer
+# computes a boundary sample's dt 1 ulp apart, and at 10 Hz frames the
+# keyframe test ``t - last_kf_t > track_max_interval`` (0.5 s) compares
+# numbers that are equal but for such ulps. The ``*_native`` scenarios run
+# the C++ buffer, which the port has too.
 PY_BUFFER = dict(use_native_imu_buffer=False)
-# kwargs of tests/test_estimator.py::small_cfg
-SMALL_CFG = dict(optimize_num_iterations=10, max_nodes=16, max_landmarks=64,
-                 optimize_windows_size=6, antlever=(0.1, -0.05, 0.2), **PY_BUFFER)
+# kwargs of tests/test_estimator.py::small_cfg, C++ buffer (its default) or Python
+SMALL_CFG_NATIVE = dict(optimize_num_iterations=10, max_nodes=16, max_landmarks=64,
+                        optimize_windows_size=6, antlever=(0.1, -0.05, 0.2))
+SMALL_CFG = dict(SMALL_CFG_NATIVE, **PY_BUFFER)
 # run_sequence arguments of the three tests of tests/test_estimator.py
 ESTIMATOR_SCENARIOS = {
     "gins": dict(cfg=SMALL_CFG, duration=15.0, with_vision=False, seed=0),
@@ -77,6 +85,12 @@ ESTIMATOR_SCENARIOS = {
     # most of the 192 slots in use
     "defaults": dict(cfg=PY_BUFFER, duration=15.0, with_vision=True, seed=0, frame_rate=10.0,
                      n_landmarks=320, cam_ext=True),
+    # the same streams through EngineConfig() unchanged: the C++ buffer
+    "defaults_native": dict(cfg={}, duration=15.0, with_vision=True, seed=0, frame_rate=10.0,
+                            n_landmarks=320, cam_ext=True, streams_of="defaults"),
+    # a 0.25 s IMU dropout through the C++ buffer (tests/test_ingest.py's gap)
+    "gap_native": dict(cfg=SMALL_CFG_NATIVE, duration=12.0, with_vision=False, seed=0,
+                       imu_gap=(6.0, 6.25)),
     # the defaults scenario's streams, GNSS only until 9 s, and a wheel
     # odometer (tests/test_odo_window.py's scale and noise)
     "odo": dict(cfg=PY_BUFFER, odo_cfg=dict(use_odo=True), duration=15.0, with_vision=True,
@@ -124,10 +138,21 @@ def _truth(traj, params, duration):
     return {"truth_t": t, "truth_p": np.asarray(p)}
 
 
-def _imu_streams(imu):
+def _imu_streams(imu, gap=None):
+    """The IMU samples as ``run_sequence`` feeds them: without the zero
+    seed, and with ``gap`` = (t0, t1) the samples in (t0, t1] left out and
+    the next one's increments and dt scaled to span the gap."""
     keep = np.asarray(imu.dt) != 0.0
-    return {"imu_t": np.asarray(imu.time)[keep], "imu_dt": np.asarray(imu.dt)[keep],
-            "imu_dth": np.asarray(imu.dtheta)[keep], "imu_dv": np.asarray(imu.dvel)[keep]}
+    t, dt = np.asarray(imu.time)[keep], np.asarray(imu.dt)[keep]
+    dth, dv = np.asarray(imu.dtheta)[keep], np.asarray(imu.dvel)[keep]
+    if gap is not None:
+        k = int(np.argmax(t > gap[1]))  # the first sample after the gap
+        span = t[k] - t[t <= gap[0]][-1]  # since the last sample before it
+        dth, dv, dt = dth.copy(), dv.copy(), dt.copy()
+        dth[k], dv[k], dt[k] = dth[k] * (span / dt[k]), dv[k] * (span / dt[k]), span
+        keep = ~((gap[0] < t) & (t <= gap[1]))
+        t, dt, dth, dv = t[keep], dt[keep], dth[keep], dv[keep]
+    return {"imu_t": t, "imu_dt": dt, "imu_dth": dth, "imu_dv": dv}
 
 
 def _cam_poses(traj, params, times, ext_p, ext_q):
@@ -172,7 +197,7 @@ def estimator_scenario(name):
                              std=0.05, key=k_gnss)
     gt = np.asarray(gnss.time)
     keep = gt <= sc.get("gnss_until", np.inf)
-    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
+    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu, sc.get("imu_gap")),
          "gnss_t": gt[keep], "gnss_p": np.asarray(gnss.p)[keep],
          "gnss_std": np.asarray(gnss.std)[keep], **_truth(traj, params, duration)}
     if sc.get("odometer"):
@@ -277,7 +302,7 @@ def odo_small_scenario():
     imu = sim.corrupt_imu(imu, params, ki, jnp.array([2e-4, -1e-4, 3e-4]),
                           jnp.array([5e-3, -8e-3, 2e-3]))
     gnss = sim.simulate_gnss(traj, params, jnp.zeros(3), 0.0, duration, 1.0, std=0.05, key=kg)
-    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
+    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu, sc.get("imu_gap")),
          "gnss_t": np.asarray(gnss.time), "gnss_p": np.asarray(gnss.p),
          "gnss_std": np.asarray(gnss.std), "frame_t": np.zeros(0),
          **_odometer(traj, params, duration, ko), **_truth(traj, params, duration)}
@@ -323,7 +348,7 @@ def pipeline_scenario():
         ftimes.append(nf)
         nf += 0.2
     ftimes = np.asarray(ftimes)
-    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
+    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu, sc.get("imu_gap")),
          "gnss_t": np.asarray(gnss.time), "gnss_p": np.asarray(gnss.p),
          "gnss_std": np.asarray(gnss.std), "frame_t": ftimes, "sprites": np.asarray(lms),
          **_truth(traj, params, duration),
@@ -342,7 +367,7 @@ def pipeline_scenario():
 
 # the JAX tests' ATE windows: errors after t_min (s)
 ATE = {"gins": 5.0, "gvins": 5.0, "outage": 10.0, "pipeline": 4.0, "defaults": 5.0,
-       "odo_small": 5.0, "odo": 5.0}
+       "odo_small": 5.0, "odo": 5.0, "defaults_native": 5.0, "gap_native": 5.0}
 
 
 def run_one(name, out):
@@ -350,6 +375,8 @@ def run_one(name, out):
     s, o = make[name]() if name in make else estimator_scenario(name)
     e = chip_smoke.trajectory_errors(o["traj_t"], o["traj_p"], s, ATE[name])
     o["ate_rmse"], o["err_max"] = np.sqrt(np.mean(e**2)), np.max(e)
+    if "streams_of" in ESTIMATOR_SCENARIOS.get(name, {}):  # the streams are stored once
+        s = {"cfg_json": s["cfg_json"]}
     np.savez_compressed(out, **s, **{f"out/{k}": v for k, v in o.items()})
     print(f"{name}: {len(o['stats'])} rounds, {int(o['log'][-1, 2])} keyframes, "
           f"peak landmark slots {int(o['log'][:, 3].max())}, final state "
