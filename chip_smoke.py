@@ -13,7 +13,8 @@ window (preintegrate -> triangulate -> ``optimize_impl(iters=20)`` ->
 (CSV and PNG files), whose ``Pipeline`` tracks the camera frames, both
 with ``EngineConfig()``, and the ``Estimator`` with the wheel odometer
 and its checkpoints; then the simulator and the two commands that run on
-it, ``run_sim`` and ``run_urban``. Phases:
+it, ``run_sim`` and ``run_urban``; then the ``parallel/`` package (a
+batch of 32 windows, landmark shards, node chunks). Phases:
 
 1. the card's name and power limit; build the CUDA kernel (nvcc, sm_90a);
 2. KLT kernel vs its plain PyTorch version at slice shapes (200 features)
@@ -63,11 +64,26 @@ it, ``run_sim`` and ``run_urban``. Phases:
    GNSS outage: TRACKING_NORMAL, one KLT launch per tracked frame, ATE
    bounds beside the JAX replay of the file, and its checkpoint resumed in
    a fresh ``Estimator``; then the KLT kernel timed at that shape beside
-   its plain version and bound.
+   its plain version and bound. Phases 6 and 8 print their decisions
+   beside the JAX runs' (rounds, ATE, where the trajectories part);
+9. the ``parallel/`` package on the card, against
+   ``tests/fixtures/torch_parallel.npz`` (``tools/make_torch_parallel_fixture.py``):
+   (a) ``optimize_batch`` of BATCH = 32 perturbations of the 24 x 192
+   float64 window (bench.py's batch; each sequence with its own damping,
+   gates and early exit) against each sequence's own ``optimize`` and, for
+   the first four, the JAX ``optimize_batch``, with the batched call's and
+   the 32 single rounds' ms, launches and busy share; (b)
+   ``optimize_sharded`` with 8 landmark shards against ``optimize`` at
+   tests/test_sharding.py's tolerances, and ``Estimator.set_mesh`` on
+   phase 5's streams cut to their first 8 s against phase 5's run; (c)
+   ``ba_nodes_solve`` at N = 256 nodes, 8 chunks, a band of 8, against the
+   one-chunk solve and the JAX solves. Phase 9 launches no hand kernel:
+   the JAX package writes these modules in jnp, outside any Pallas
+   kernel.
 
-Phases 3 to 8 run with the kernel's launch count set to 0 before each and
+Phases 3 to 9 run with the kernel's launch count set to 0 before each and
 read after it; the ``launches`` of the kernels line sums phases 3, 6 and
-8.
+8, and phase 9 must launch it no time.
 Every phase raises on failure. Needs a CUDA device: without one it exits
 with code 1 and prints no result. Prints a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -90,6 +106,7 @@ ESTIMATOR_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_def
 ODO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_odo.npz")
 SIM_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_sim.npz")
 URBAN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_urban90.npz")
+PARALLEL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_parallel.npz")
 
 IMG_W, IMG_H = 1278, 1022  # engine default camera
 N_FEATURES = 200
@@ -99,6 +116,12 @@ CELL = 64
 FLOW = (1.3, -0.7)  # known per-frame shift (x, y) in px
 N_FRAMES = 8
 ITERS = 20
+BATCH = 32  # sequences of phase 9's optimize_batch (bench.py's BATCH)
+BATCH_SEED = 100  # numpy seed of sequence b: BATCH_SEED + b
+BATCH_JAX = 4  # sequences 0..3 are held against the JAX optimize_batch
+SHARDS = 8  # landmark shards of phase 9's optimize_sharded
+SHARDED_S = 8.0  # s of phase 5's streams that phase 9 replays landmark-sharded
+BATCH_POS_ATOL = 1e-8  # m, a batch member against its own round
 
 # Limits. KLT: the kernel sums the 441 window terms in another order than
 # the plain version (and may fuse multiply-adds), so points agree to
@@ -689,6 +712,7 @@ def phase_preprocess(frames, dev):
 
     from ic_gvins_tpu_torch.vision.preprocess import clahe
     from ic_gvins_tpu_torch.vision.ransac import fundamental_ransac
+    from ic_gvins_tpu_torch.common.prng import ransac_uniforms
 
     img = torch.as_tensor(frames[0])
     on_card = clahe(img.to(dev))
@@ -705,10 +729,11 @@ def phase_preprocess(frames, dev):
     uv0, uv1, is_out = two_view_scene(n, n_out, seed=0)
     args = (torch.as_tensor(uv0, device=dev), torch.as_tensor(uv1, device=dev),
             torch.ones(n, dtype=torch.bool, device=dev), 1.5)
-    inl, F = fundamental_ransac(*args, torch.Generator().manual_seed(0))
+    u = ransac_uniforms(0)
+    inl, F = fundamental_ransac(*args, u)
     inl = inl.cpu().numpy()
     kept = float(inl[~is_out].mean())
-    ms_ransac = cuda_ms(lambda: fundamental_ransac(*args, torch.Generator().manual_seed(0)), 5)
+    ms_ransac = cuda_ms(lambda: fundamental_ransac(*args, u), 5)
     log(f"phase 2 ransac: {n} correspondences, {n_out} gross outliers: kept "
         f"{kept:.3f} of the true inliers (>= {RANSAC_KEEP}), {int(inl[is_out].sum())} "
         f"outliers kept (0), {ms_ransac:.3f} ms per call")
@@ -781,6 +806,46 @@ def round_inputs(dev):
     return tuple(to_torch(t, inp[k], dev) for k, t in types), unflatten(fx, "out/")
 
 
+def perturb_round(win, opt, b):
+    """Sequence ``b`` of phase 9's batch from the round's window ``win``
+    (a nested dict of numpy arrays) and the JAX round's optimum ``opt``
+    (``nodes``, ``lm_invdepth``). Sequences with b % 4 < 2 start at the
+    window with their own node and depth perturbation, larger for higher
+    ``b % 8``, and every third of them has two observations pushed 0.03
+    (about 15 sigma) off their track, which the chi2 gate culls; the others
+    start at the optimum moved by 1e-3 m (b % 4 == 2) or 1e-6 m (b % 4 ==
+    3) times 1 + b // 4, so the sequences stop after different numbers of
+    iterations."""
+    rng = np.random.default_rng(BATCH_SEED + b)
+    out = dict(win)
+    n = win["nodes"]["p"].shape[0]
+    if b % 4 >= 2:
+        nodes = dict(opt["nodes"])
+        scale = (1e-3 if b % 4 == 2 else 1e-6) * (1 + b // 4)
+        nodes["p"] = nodes["p"] + scale * rng.standard_normal((n, 3))
+        out["nodes"] = nodes
+        out["lm_invdepth"] = opt["lm_invdepth"].copy()
+        return out
+    nodes = dict(win["nodes"])
+    scale = 0.01 + 0.09 * (b % 8) / 7.0
+    nodes["p"] = nodes["p"] + scale * rng.standard_normal((n, 3))
+    nodes["v"] = nodes["v"] + 0.5 * scale * rng.standard_normal((n, 3))
+    out["nodes"] = nodes
+    out["lm_invdepth"] = win["lm_invdepth"] * (1.0 + 0.02 * (b % 5) * rng.standard_normal(
+        win["lm_invdepth"].shape))
+    if b % 3 == 0:
+        ref = win["lm_ref"].astype(np.int64)
+        kf = win["node_valid"] & win["node_is_kf"]
+        live = (win["obs_valid"] & win["lm_valid"][:, None] & kf[ref][:, None] & kf[None, :]
+                & (np.arange(n)[None, :] != ref[:, None]))
+        ls, ks = np.nonzero(live)
+        pick = rng.choice(len(ls), 2, replace=False)
+        uv = win["obs_uv"].copy()
+        uv[ls[pick], ks[pick], 0] += 0.03
+        out["obs_uv"] = uv
+    return out
+
+
 def phase_round(dev):
     import torch
 
@@ -841,16 +906,19 @@ def phase_round(dev):
         + f", round {sum(ms.values()):.2f}")
 
 
-def run_estimator(s, dev, on_event=None, **overrides):
+def run_estimator(s, dev, on_event=None, mesh=None, **overrides):
     """The port's ``Estimator`` (the scenario's configuration with
-    ``overrides``) fed the scenario's ideal tracks on ``dev``, calling
-    ``on_event(e, est)`` after event e: (estimator, feed log + summary)."""
+    ``overrides``; its rounds landmark-sharded over ``mesh`` if given)
+    fed the scenario's ideal tracks on ``dev``, calling ``on_event(e, est)``
+    after event e: (estimator, feed log + summary)."""
     import torch
 
     from ic_gvins_tpu_torch.engine import config as tconfig
     from ic_gvins_tpu_torch.engine.estimator import Estimator
 
     est = Estimator(engine_config(tconfig, s, **overrides), device=dev)
+    if mesh is not None:
+        est.set_mesh(mesh)
     if "ext_p" in s:  # the scenario's camera, set on the window as the JAX tests do
         est.window = est.window._replace(ext_p=torch.as_tensor(s["ext_p"], device=dev),
                                          ext_q=torch.as_tensor(s["ext_q"], device=dev))
@@ -927,6 +995,29 @@ def first_parting(a, b):
     return None if len(a["log"]) == len(b["log"]) else n
 
 
+def trajectory_parting(t_a, t_b, atol_t=1e-6):
+    """The first trajectory entry at which two runs part (another time: a
+    node made at another moment), or None."""
+    n = min(len(t_a), len(t_b))
+    bad = np.abs(np.asarray(t_a[:n]) - np.asarray(t_b[:n])) > atol_t
+    if bad.any():
+        return int(np.argmax(bad))
+    return None if len(t_a) == len(t_b) else n
+
+
+def parting_line(t_a, p_a, t_b, p_b):
+    """Where a port run's trajectory parts from a JAX run's, in words, with
+    the positions' largest gap before that entry."""
+    e = trajectory_parting(t_a, t_b)
+    n = min(len(t_a), len(t_b)) if e is None else e
+    gap = float(np.linalg.norm(np.asarray(p_a[:n]) - np.asarray(p_b[:n]), axis=1).max()) if n else 0.0
+    head = f"{len(t_a)} trajectory entries (JAX {len(t_b)})"
+    if e is None:
+        return f"{head} at the same times; positions at most {gap:.3g} m apart"
+    return (f"{head}; the runs part at entry {e} (t = {float(t_b[min(e, len(t_b) - 1)]):.2f} s "
+            f"of JAX's), positions at most {gap:.3g} m apart before it")
+
+
 def phase_estimator(dev):
     """Phase 5: ``Estimator(EngineConfig())``, so with the C++ IMU buffer,
     at full width on the defaults fixture's streams against the JAX run of
@@ -963,6 +1054,212 @@ def phase_estimator(dev):
         f"{TRAJ_POS_ATOL}), {dq:.3g} rad (<= {CARD_TRAJ_ATT_ATOL}); "
         f"ATE {np.sqrt(np.mean(e ** 2)):.4f} m (JAX {float(ref['ate_rmse']):.4f})")
     log("phase 5 " + stage_line(est, wall, float(s["imu_t"][-1])))
+    return {**s, "cfg_json": native["cfg_json"]}, got
+
+
+def head(s, t_end):
+    """A scenario's streams up to ``t_end`` (s)."""
+    out = dict(s)
+    for prefix, keys in (("imu_t", ("imu_t", "imu_dt", "imu_dth", "imu_dv")),
+                         ("gnss_t", ("gnss_t", "gnss_p", "gnss_std")),
+                         ("frame_t", ("frame_t", "frame_n"))):
+        keep = s[prefix] <= t_end
+        for k in keys:
+            out[k] = s[k][keep]
+    return out
+
+
+def profiled(fn):
+    """Run fn once under torch.profiler: (its result, kernel launches,
+    device ms summed over the kernels, wall ms, busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the raw device events: key_averages() would build a Python event tree,
+    # minutes for the million launches of 32 single rounds
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    dev_ms = sum(e.duration_ns() for e in kernels) / 1e6
+    return out, len(kernels), dev_ms, wall, dev_ms / wall
+
+
+def timed(fn):
+    """(fn's result, wall ms with the card synchronized before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def parallel_round(dev):
+    """Phase 9's batch: the round's 24 x 192 window under BATCH
+    perturbations (``perturb_round``) on ``dev``, and the shared prior,
+    configuration and parameters."""
+    from ic_gvins_tpu_torch.convert import to_torch, unflatten
+    from ic_gvins_tpu_torch.data.types import IntegrationParams
+    from ic_gvins_tpu_torch.solver.window import Prior, SolverConfig, Window
+
+    fx = dict(np.load(PARALLEL_FIXTURE))
+    inp = unflatten(fx, "round/in/")
+    wins = [to_torch(Window, perturb_round(inp["window"], inp["opt"], b), dev)
+            for b in range(BATCH)]
+    return (wins, to_torch(Prior, inp["prior"], dev), to_torch(SolverConfig, inp["cfg"], dev),
+            to_torch(IntegrationParams, inp["params"], dev), fx)
+
+
+def phase_batch(dev):
+    """Phase 9 (a): ``optimize_batch`` of BATCH sequences of the 24 x 192
+    float64 window, ITERS iterations, against the port's own ``optimize``
+    of each sequence alone (equal counts of accepted steps, iterations and
+    culls; positions within 1e-8 m) and, for the first BATCH_JAX, against
+    the JAX ``optimize_batch`` in ``tests/fixtures/torch_parallel.npz``;
+    with the batched call's and the BATCH single rounds' ms, launches and
+    busy share."""
+    from ic_gvins_tpu_torch.convert import unflatten
+    from ic_gvins_tpu_torch.parallel import multi_seq
+    from ic_gvins_tpu_torch.solver.lm import optimize
+
+    wins, prior, cfg, params, fx = parallel_round(dev)
+    windows = multi_seq.stack_windows(wins)
+    priors = multi_seq.stack_priors([prior] * BATCH)
+    batched = lambda: multi_seq.optimize_batch(windows, priors, cfg, params, iters=ITERS)  # noqa: E731
+    singles = lambda ws: [optimize(w, prior, cfg, params, iters=ITERS) for w in ws]  # noqa: E731
+    batched()  # the first call warms vmap and the solver libraries
+    (out, (c0, c1, ncull, iters, acc)), ms_b = timed(batched)
+    ref, ms_s = timed(lambda: singles(wins))
+    _, n_b, dev_b, wall_b, busy_b = profiled(batched)
+    # a quarter of the single rounds under the profiler (every perturbation
+    # class of perturb_round): the profiler's wall and events grow with the
+    # launches, about a million for all 32
+    _, n_s, dev_s, wall_s, busy_s = profiled(lambda: singles(wins[:BATCH // 4]))
+    worst = 0.0
+    for b, (w, (s1, s2, nc)) in enumerate(ref):
+        check((int(ncull[b]), int(iters[b]), int(acc[b])) == (
+            int(nc), s1.iters_run + s2.iters_run, s1.accepted + s2.accepted),
+            f"batch member {b}: culls / iterations / accepted steps differ from its own round")
+        worst = max(worst, float((out.nodes.p[b] - w.nodes.p).abs().max()))
+    check(worst <= BATCH_POS_ATOL, f"batch positions {worst:.3g} m from the single rounds "
+          f"(> {BATCH_POS_ATOL})")
+    jx = unflatten(fx, "round/batch/")
+    errs = []
+    for k, got in (("n_culled", ncull), ("iters_run", iters), ("accepted", acc)):
+        check(np.array_equal(got[:BATCH_JAX].cpu().numpy(), jx["stats"][k]),
+              f"batch {k} differs from the JAX optimize_batch")
+    for k in ("p", "v", "q"):
+        errs.append(rel_err(jx["window"]["nodes"][k], getattr(out.nodes, k)[:BATCH_JAX].cpu()))
+    check(max(errs) <= RTOL_ITERATIVE, f"batch nodes {max(errs):.3g} from JAX (relative)")
+    it, nc = iters.tolist(), ncull.tolist()
+    check(len(set(it)) > 1 and max(nc) > 0, "the batch neither stops apart nor culls")
+    log(f"phase 9 (a) optimize_batch of {BATCH} sequences (24 nodes x 192 landmarks, f64, "
+        f"{ITERS} iters): iterations {min(it)}-{max(it)} ({sorted(set(it))}), culls in "
+        f"{sum(x > 0 for x in nc)} sequences (max {max(nc)}); every member equals its own round "
+        f"(positions {worst:.3g} m), the first {BATCH_JAX} the JAX optimize_batch ({max(errs):.3g} "
+        f"relative)")
+    log(f"phase 9 (a) batched call {ms_b:.2f} ms, {BATCH} single rounds {ms_s:.2f} ms "
+        f"({ms_s / ms_b:.2f} x); launches {n_b} for the batched call, {n_s} for the first "
+        f"{BATCH // 4} single rounds (profiled); busy share {busy_b:.4f} batched ({dev_b:.2f} "
+        f"ms of device time in {wall_b:.2f} ms profiled), {busy_s:.4f} single ({dev_s:.2f} "
+        f"in {wall_s:.2f} ms)")
+    return wins, prior, cfg, params, fx
+
+
+def phase_sharded(dev, wins, prior, cfg, params, phase5):
+    """Phase 9 (b): ``optimize_sharded`` with SHARDS landmark shards on
+    sequence 0 against ``optimize`` at tests/test_sharding.py's
+    tolerances; then ``Estimator.set_mesh`` on phase 5's streams, cut to
+    the first SHARDED_S s, against phase 5's unsharded run up to then."""
+    from ic_gvins_tpu_torch.parallel import Mesh
+    from ic_gvins_tpu_torch.parallel.lm_sharded import optimize_sharded
+    from ic_gvins_tpu_torch.solver.assembly import free_mask_lm
+    from ic_gvins_tpu_torch.solver.lm import optimize
+
+    mesh = Mesh({"lm": SHARDS}, device=dev)
+    (ref, (r1, r2, nr)), ms_1 = timed(lambda: optimize(wins[0], prior, cfg, params, iters=ITERS))
+    (out, (s1, s2, ns)), ms_s = timed(lambda: optimize_sharded(wins[0], prior, cfg, params, mesh,
+                                                               iters=ITERS))
+    check(int(ns) == int(nr) and (s1.accepted, s2.accepted) == (r1.accepted, r2.accepted),
+          "the sharded round's culls or accepted steps differ")
+    dc = abs(float(s2.cost1) - float(r2.cost1)) / abs(float(r2.cost1))
+    err = {k: float((getattr(out.nodes, k) - getattr(ref.nodes, k)).abs().max())
+           for k in ("p", "v", "q")}
+    free = free_mask_lm(wins[0])
+    err["invd"] = float((out.lm_invdepth - ref.lm_invdepth)[free].abs().max())
+    check(dc <= 1e-8, f"sharded cost1 {dc:.3g} from the single round (relative)")
+    check(err["p"] <= 1e-5 and err["v"] <= 1e-5 and err["q"] <= 1e-6 and err["invd"] <= 1e-5,
+          f"sharded round off the single round: {err}")
+    check(bool((out.obs_valid == ref.obs_valid).all()), "sharded culling masks differ")
+    log(f"phase 9 (b) optimize_sharded ({SHARDS} landmark shards, sequence 0): culls {int(ns)}, "
+        f"accepted {s1.accepted}+{s2.accepted} as the single round; cost1 {dc:.3g} relative, "
+        f"positions {err['p']:.3g} m, velocities {err['v']:.3g}, attitudes {err['q']:.3g}, "
+        f"inverse depths {err['invd']:.3g}; {ms_s:.2f} ms sharded, {ms_1:.2f} ms single")
+
+    s5, got5 = phase5
+    s = head(s5, SHARDED_S)
+    (est, got), ms_e = timed(lambda: run_estimator(s, dev, mesh=mesh))
+    n_ev, n_rounds = len(got["log"]), len(got["stats"])
+    want = {k: got5[k][:n_ev] for k in ("log", "log_node_t", "log_node_kf")}
+    want.update({k: got5[k][:n_rounds] for k in ("stats", "traj_p", "traj_q")})
+    dp, dq = compare_estimator(got, want, CARD_TRAJ_ATT_ATOL)
+    log(f"phase 9 (b) Estimator.set_mesh({SHARDS} shards) on phase 5's first {SHARDED_S:.0f} s "
+        f"(cut from {float(s5['imu_t'][-1]):.0f} s): {n_ev} events, {n_rounds} rounds with "
+        f"phase 5's events, node times, keyframes and LM steps; trajectory {dp:.3g} m, "
+        f"{dq:.3g} rad from phase 5's; {ms_e / 1e3:.1f} s of wall")
+
+
+def phase_ba_nodes(dev, fx):
+    """Phase 9 (c): ``ba_nodes_solve`` at tests/test_ba_nodes.py's largest
+    shape (N = 256 nodes, 8 chunks, a band of 8, landmarks across every
+    cut) against the one-chunk solve and the JAX solves in the fixture."""
+    from ic_gvins_tpu_torch.convert import to_torch, unflatten
+    from ic_gvins_tpu_torch.data.types import IntegrationParams, NavState
+    from ic_gvins_tpu_torch.ins.preintegration import PreintData
+    from ic_gvins_tpu_torch.parallel import Mesh, ba_nodes
+
+    inp = unflatten(fx, "ba256/in/")
+    params = to_torch(IntegrationParams, inp["params"], dev)
+    band, iters = int(inp["sep_width"]), int(inp["iters"])
+    sols = {}
+    for n, b in ((8, band), (1, 1)):
+        ba, dropped = ba_nodes.build_nodes_ba(
+            to_torch(NavState, inp["nodes"], dev), to_torch(PreintData, inp["preint"], dev),
+            inp["gnss_p"], inp["gnss_std"], inp["gnss_valid"], inp["lm_invd"], inp["lm_ref"],
+            inp["obs_uv"], inp["obs_valid"], ext_p=np.zeros(3), ext_q=np.array([1.0, 0, 0, 0]),
+            reproj_std=1.5 / 500.0, n_chunks=n, stencil=int(inp["stencil"]), sep_width=b,
+            device=dev)
+        check(dropped == 0, f"{dropped} observations masked with {n} chunks")
+        solve = lambda: ba_nodes.ba_nodes_solve(ba, params, Mesh({"nodes": n}, device=dev),  # noqa: E731
+                                                iters=iters, sep_width=b)
+        solve()  # warm
+        sols[n] = timed(solve)
+    (o8, (c0, c1, nacc, it)), ms8 = sols[8]
+    (o1, _), ms1 = sols[1]
+    d = {k: float((getattr(o8.nodes, k) - getattr(o1.nodes, k)).abs().max()) for k in ("p", "v")}
+    inv = lambda o: np.sort(o.lm_invdepth[o.lm_valid].cpu().numpy())  # noqa: E731
+    d["invd"] = float(np.abs(inv(o8) - inv(o1)).max())
+    check(d["p"] <= 1e-5 and d["v"] <= 1e-5 and d["invd"] <= 1e-6,
+          f"8 chunks off the one-chunk solve: {d}")
+    errs = []
+    for n, o in ((8, o8), (1, o1)):
+        jx = unflatten(fx, f"ba256/chunks{n}/")
+        check(int(sols[n][0][1][2]) == int(jx["stats"]["accepted"]),
+              f"{n}-chunk accepted steps differ from JAX")
+        errs += [rel_err(jx["nodes"][k], getattr(o.nodes, k).cpu()) for k in ("p", "v", "q")]
+    check(max(errs) <= RTOL_ITERATIVE, f"node-chunked BA {max(errs):.3g} from JAX (relative)")
+    check(float(c1) < 0.3 * float(c0), "node-chunked BA did not converge")
+    log(f"phase 9 (c) ba_nodes_solve (256 nodes, 8 chunks, band {band}, {iters} iters, no "
+        f"observation masked): cost {float(c0):.6g} -> {float(c1):.6g}, {nacc} accepted; vs one "
+        f"chunk positions {d['p']:.3g} m, velocities {d['v']:.3g}, inverse depths "
+        f"{d['invd']:.3g}; vs JAX {max(errs):.3g} relative; {ms8:.2f} ms per solve with 8 "
+        f"chunks, {ms1:.2f} ms with one")
 
 
 @contextmanager
@@ -1075,6 +1372,11 @@ def phase_pipeline(dev, work):
     check(est.n_keyframes >= 2 and len(est.lm_slot) >= 10, "too few keyframes or landmarks")
     check(tracked > 0 and launches == tracked, "the KLT kernel was not launched once per "
           "tracked frame")
+    ref = {k[4:]: v for k, v in s.items() if k.startswith("out/")}
+    log(f"phase 6 decisions against JAX (no JAX pipeline run exists at this width: the JAX "
+        f"Estimator on the ideal tracks of these streams): {len(est.stats)} rounds (JAX "
+        f"{len(ref['stats'])}), ATE after 5 s {rms(err[t >= T_BASE + 5.0]):.4f} m (JAX "
+        f"{float(ref['ate_rmse']):.4f})")
     check(ate < PIPELINE_ATE, f"pipeline ATE {ate:.3f} m >= {PIPELINE_ATE}")
     check(abs(res["ate_rmse_m"] - ate_run) <= 1e-4, "the command's ATE disagrees with its "
           "trajectory.csv")
@@ -1321,6 +1623,11 @@ def phase_urban(dev, work):
     log(f"phase 8 run_urban front end ms per frame: first {fm[0]:.2f}, median "
         f"{np.median(fm[1:]):.2f}, max {fm[1:].max():.2f}; frame wall mean (render + track + "
         f"estimator) {res['frame_wall_mean_ms']:.2f} ms; " + stage_line(est, wall, URBAN_S))
+    with np.load(os.path.join(out, "trajectory.npz")) as z:
+        log(f"phase 8 run_urban decisions against the JAX replay of the file (the same "
+            f"FM-RANSAC draws): ATE rmse {res['ate_rmse_m']:.4f} m (JAX "
+            f"{float(jax_res['ate_rmse_m']):.4f}), {len(est.stats)} rounds; "
+            + parting_line(z["est_t"], z["est_p"], jax_res["est_t"], jax_res["est_p"]))
     check(est.state == TRACKING_NORMAL, "the urban replay did not reach TRACKING_NORMAL")
     check(tracked > 0 and launches == tracked, "the KLT kernel was not launched once per "
           "tracked frame in the urban replay")
@@ -1367,7 +1674,7 @@ def main():
         return 1
     if not os.path.isdir(os.path.join(ROOT, "ic_gvins_tpu_torch")) or not all(
             os.path.exists(f) for f in (FIXTURE, ESTIMATOR_FIXTURE, ODO_FIXTURE, SIM_FIXTURE,
-                                        URBAN_FIXTURE)):
+                                        URBAN_FIXTURE, PARALLEL_FIXTURE)):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
@@ -1387,7 +1694,7 @@ def main():
     launches_frontend = klt_cuda.lk_track_bidirectional.launches
     check(launches_frontend > 0, "the front end never launched the KLT kernel")
     phase_round(dev)
-    phase_estimator(dev)
+    phase5 = phase_estimator(dev)
     work = os.path.join(ROOT, "build", "smoke_replay")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1400,6 +1707,14 @@ def main():
         launches_urban, (err_u, ms_u, plain_u, bound_u, by_u) = phase_urban(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # phase 9: the parallel/ package on the card
+    klt_cuda.lk_track_bidirectional.launches = 0
+    t9 = time.perf_counter()
+    wins, prior, cfg, params, fx = phase_batch(dev)
+    phase_sharded(dev, wins, prior, cfg, params, phase5)
+    phase_ba_nodes(dev, fx)
+    check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 9 launched the KLT kernel")
+    log(f"phase 9 wall: {time.perf_counter() - t9:.1f} s")
     log(f"phase 8 klt at the urban replay's shape (320x240, 120 feature slots, 4 images): "
         f"kernel {ms_u:.4f} ms on the card, plain {plain_u:.4f} ms, bound {bound_u:.5f} ms "
         f"({by_u}), max |kernel - plain| {err_u:.3g} px")

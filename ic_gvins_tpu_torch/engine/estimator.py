@@ -26,12 +26,13 @@ odometer (``ins/preintegration_odo.py``) and the window estimates its
 scale. ``save_checkpoint`` / ``load_checkpoint`` use the JAX package's
 pickle layout, so either package resumes the other's checkpoints.
 
-Not ported, and refused where asked for: landmark-sharded rounds
-(``set_mesh``) and window re-centering (``recenter_threshold > 0``; the
-port runs in float64, where the JAX package turns it off; ``n_recenters``
-stays 0). ``cfg.use_native_imu_buffer`` picks the C++ IMU buffer of the
-port's native library (the default) or the Python one, as in the JAX
-package; a C++ buffer that cannot be built raises.
+``set_mesh`` runs the rounds landmark-sharded
+(``parallel/lm_sharded.py``). Not ported, and refused where asked for:
+window re-centering (``recenter_threshold > 0``; the port runs in
+float64, where the JAX package turns it off; ``n_recenters`` stays 0).
+``cfg.use_native_imu_buffer`` picks the C++ IMU buffer of the port's
+native library (the default) or the Python one, as in the JAX package; a
+C++ buffer that cannot be built raises.
 """
 
 import bisect
@@ -58,6 +59,7 @@ from ..ins import mechanization as mech
 from ..ins.preintegration import preintegrate
 from ..ins.preintegration_odo import OdoParams, preintegrate_odo
 from ..native import NativeImuBuffer
+from ..parallel.lm_sharded import optimize_sharded
 from ..solver import lm as lm_mod
 from ..solver.assembly import eval_reproj_res, obs_mask
 from ..solver.window import SolverConfig, empty_prior, empty_window, make_init_prior
@@ -366,6 +368,7 @@ class Estimator:
         self.pending_events: list[tuple] = []
         self.imu_repaired = 0  # IMU samples synthesized into rate gaps
         self.n_recenters = 0  # window shifts: always 0 (re-centering is not ported)
+        self.mesh = None  # set_mesh: rounds landmark-sharded over this mesh
         self.dropped_gnss = 0  # fixes lost despite the capacity slide
         # geodetic anchor of the local frame (lat rad, lon rad, h m); when
         # set, Earth rate + gravity derive from position
@@ -508,7 +511,16 @@ class Estimator:
         return self._dev(np.interp(t, np.asarray(self.odo_t), np.asarray(self.odo_v)) * dt)
 
     def set_mesh(self, mesh):
-        raise NotImplementedError("landmark-sharded rounds (set_mesh) are not ported")
+        """Run the optimization rounds landmark-sharded over ``mesh``
+        (``parallel.Mesh``, axis "lm"; ``parallel/lm_sharded.optimize_sharded``:
+        the same two-phase LM, the landmark sums per shard, then over the
+        shards). ``None`` restores the single path."""
+        if mesh is not None:
+            if self.cfg.max_landmarks % mesh.shape["lm"] != 0:
+                raise ValueError("max_landmarks must divide the mesh size")
+            if mesh.device != self.device:
+                raise ValueError(f"the mesh is on {mesh.device}, the estimator on {self.device}")
+        self.mesh = mesh
 
     # ------------------------------------------------------------------
     # checkpoint / resume
@@ -1125,7 +1137,11 @@ class Estimator:
         t_opt1 = t_opt2 = None
         it = self.cfg.optimize_num_iterations
         with self._timed("optimize"):
-            if self.cfg.stat_phase_split and not warming_up:
+            if self.mesh is not None:
+                self.window, stats = optimize_sharded(
+                    self.window, self.prior, cfg_round, self.params, self.mesh,
+                    iters=(30 if warming_up else it), do_cull=not warming_up)
+            elif self.cfg.stat_phase_split and not warming_up:
                 # the two phases apart, so that each is timed
                 t0 = _time.perf_counter()
                 self.window, s1p, ncull_p = lm_mod.optimize_phase1(
@@ -1143,7 +1159,7 @@ class Estimator:
                     iters=(30 if warming_up else it), do_cull=not warming_up)
         t_opt = self.stage_ms["optimize"][-1] / 1e3
         if self.cfg.stat_phase_split and t_opt1 is None:
-            t_opt1, t_opt2 = t_opt, 0.0  # warm-up rounds: unsplit
+            t_opt1, t_opt2 = t_opt, 0.0  # warm-up and sharded rounds: unsplit
         s1, s2, ncull = stats
         # per-keyframe statistics (statistics.txt columns, ic_gvins.cc:964-1067)
         r_v = eval_reproj_res(self.window, self.solver_cfg)

@@ -17,14 +17,13 @@ import numpy as np
 import torch
 
 from ..common import rotation as rot
+from ..common.prng import ransac_uniforms
 from ..vision import camera as cam_mod
 from ..vision import klt_cuda
 from ..vision import ransac as ransac_mod
 from ..vision.detector import corner_subpix, detect_features
 from ..vision.preprocess import clahe, histogram_correlation
 from ..vision.pyramid import build_pyramid
-
-RANSAC_SEED = 0  # with the frame counter, the seed of each frame's RANSAC draws
 
 
 def prep_frame(img, levels: int, use_clahe: bool):
@@ -35,11 +34,11 @@ def prep_frame(img, levels: int, use_clahe: bool):
 def track_frame(cam, prev_pyr, img, pts, valid, q_prev_wc, q_wc,
                 has_rot: bool, p_wc, lm_pw, lm_ok, levels: int,
                 use_clahe: bool, fm_ransac: bool, uv_prev, ransac_thr: float,
-                generator):
+                ransac_u):
     """Preprocess -> pyramid -> LK seed prediction -> bidirectional KLT ->
     normalize -> FM-RANSAC epipolar culling. ``uv_prev`` [F,2] f64 holds
-    the previous normalized observations and ``generator`` is the
-    ``torch.Generator`` of the RANSAC draws.
+    the previous normalized observations and ``ransac_u`` [128, 8] f64 the
+    uniforms of the RANSAC draws.
     Returns (pyr, pts1 [F,2] f32, ok [F], uv1 [F,2] f64)."""
     pyr = prep_frame(img, levels, use_clahe)
 
@@ -73,7 +72,7 @@ def track_frame(cam, prev_pyr, img, pts, valid, q_prev_wc, q_wc,
         to_px = lambda nrm: torch.stack(  # noqa: E731
             [cam.fx * nrm[:, 0] + cam.cx, cam.fy * nrm[:, 1] + cam.cy], -1)
         inl, _ = ransac_mod.fundamental_ransac(
-            to_px(uv_prev), to_px(uv1), ok, ransac_thr, generator)
+            to_px(uv_prev), to_px(uv1), ok, ransac_thr, ransac_u)
         ok = ok & (inl | (ok.sum() < ransac_mod.MIN_POINTS))
     return pyr, pts1, ok, uv1
 
@@ -163,9 +162,9 @@ class Frontend:
             has_rot = self.prev_q_wc is not None and q_wc is not None
             qi = np.array([1.0, 0.0, 0.0, 0.0])
             f64 = torch.float64
-            # the draws are a function of the frame counter, so a replay
-            # culls the same tracks
-            gen = torch.Generator().manual_seed((RANSAC_SEED << 32) + self.frame_count)
+            # the JAX package's draws for this frame counter, so both
+            # packages (and a replay) cull the same tracks
+            u = self._dev(ransac_uniforms(self.frame_count), f64)
             pyr, pts1_d, ok_d, uv1_d = track_frame(
                 self.cam, self.prev_pyr, img,
                 self._dev(self.pts), self._dev(self.valid),
@@ -175,7 +174,7 @@ class Frontend:
                 self._dev(p_wc if p_wc is not None else np.zeros(3), f64),
                 self._dev(lm_pw, f64), self._dev(lm_ok, torch.bool),
                 self.levels, self.use_clahe, self.fm_ransac,
-                self._dev(self.uv_norm, f64), self.ransac_threshold, gen,
+                self._dev(self.uv_norm, f64), self.ransac_threshold, u,
             )
             pts1, ok, uv_new = (x.cpu().numpy() for x in (pts1_d, ok_d, uv1_d))
             dt = max(t - self.prev_time, 1e-3)

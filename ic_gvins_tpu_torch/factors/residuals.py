@@ -11,6 +11,11 @@ from ..common import rotation as rot
 from ..common.rotation import mv
 
 
+def gnss_residual(p, q, antlever, gnss_p, gnss_std):
+    """3-dim whitened GNSS residual: (p + R(q) lever - p_gnss) / std."""
+    return (p + rot.quat_rotate(q, antlever) - gnss_p) / gnss_std
+
+
 def gnss_residual_jac(p, q, antlever, gnss_p, gnss_std):
     """3-dim whitened GNSS residual (p + R(q) lever - p_gnss) / std and its
     3x6 Jacobian w.r.t. the pose delta [dp | dtheta]."""
@@ -96,8 +101,31 @@ def bias_soft_residual_jac(bg, ba, bg_std, ba_std):
     """6-dim soft zero-prior on the newest node's biases and its 6x15
     Jacobian w.r.t. the node delta."""
     r = torch.cat([bg / bg_std, ba / ba_std], -1)
-    J = torch.zeros(bg.shape[:-1] + (6, 15), dtype=bg.dtype, device=bg.device)
+    J = bg.new_zeros(bg.shape[:-1] + (6, 15))
     eye3 = torch.eye(3, dtype=bg.dtype, device=bg.device)
     J[..., 0:3, 9:12] = eye3 / bg_std
     J[..., 3:6, 12:15] = eye3 / ba_std
     return r, J
+
+
+def pose_prior_residual(p, q, prior_p, prior_q, prior_std6):
+    """6-dim whitened pose prior (position and attitude rotation vector)."""
+    dq = rot.quat_mul(rot.quat_inv(prior_q), q)
+    return torch.cat([p - prior_p, rot.quat_to_rotvec(dq)], -1) / prior_std6
+
+
+def mix_prior_residual(v, bg, ba, prior_v, prior_bg, prior_ba, prior_std9):
+    """9-dim whitened velocity and bias prior."""
+    return torch.cat([v - prior_v, bg - prior_bg, ba - prior_ba], -1) / prior_std9
+
+
+def bias_soft_residual(bg, ba, bg_std, ba_std):
+    """6-dim soft zero-prior on the newest node's biases."""
+    return torch.cat([bg / bg_std, ba / ba_std], -1)
+
+
+def huber_weight(chi2, delta=1.0):
+    """IRLS weight of Ceres' HuberLoss(delta), rho'(s) = min(1, delta /
+    sqrt(s)) (rho(s) = s up to delta^2, then 2 delta sqrt(s) - delta^2)."""
+    s = torch.clamp(chi2, min=1e-30)
+    return torch.clamp(delta / torch.sqrt(s), max=1.0)

@@ -336,7 +336,7 @@ def preint_residual_jac(
     RM = rot.quat_right(M)[..., 1:, 1:]
     Jr = _so3_right_jacobian(phi_bg)
 
-    J = torch.zeros(r.shape[:-1] + (15, 30), dtype=r.dtype, device=r.device)
+    J = r.new_zeros(r.shape[:-1] + (15, 30))
     J[..., 0:3, 0:3] = -C0 - 2.0 * T * CW
     J[..., 0:3, 3:6] = rot.skew(mv(C0, dpn))
     J[..., 0:3, 6:9] = -T * C0

@@ -173,7 +173,7 @@ def preint_odo_residual_jac(
     dp01 = mv(C0, state1.p - state0.p)
     r = torch.cat([r15, dp01 - _corrected_s(preint, state0, sodo),
                    torch.zeros_like(r15[..., :1])], -1)
-    J = torch.zeros(r.shape[:-1] + (NUM_STATE, 31), dtype=r.dtype, device=r.device)
+    J = r.new_zeros(r.shape[:-1] + (NUM_STATE, 31))
     J[..., :15, :30] = J15
     J[..., 15:18, 0:3] = -C0
     J[..., 15:18, 3:6] = rot.skew(dp01)

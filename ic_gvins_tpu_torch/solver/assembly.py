@@ -24,11 +24,13 @@ from ..data.types import IntegrationParams, NavState
 from ..factors.residuals import (
     bias_soft_residual_jac,
     gnss_residual_jac,
+    huber_weight,
     reprojection_residual,
     reprojection_residual_jac,
 )
 from ..ins.preintegration import preint_residual, preint_residual_jac, sqrt_information
 from ..ins.preintegration_odo import OdoPreintData, preint_odo_residual, preint_odo_residual_jac
+from ..parallel import psum
 from .window import EXT_DOF, NODE_DOF, Prior, SolverConfig, Window, state_boxminus
 
 SODO = 7  # the odometer scale's index in the extrinsic block
@@ -50,10 +52,6 @@ class FactorSel(NamedTuple):
 
 def huber_rho(s):
     return torch.where(s <= 1.0, s, 2.0 * torch.sqrt(torch.clamp(s, min=1.0)) - 1.0)
-
-
-def huber_weight(s):
-    return torch.clamp(1.0 / torch.sqrt(torch.clamp(s, min=1e-30)), max=1.0)
 
 
 def is_odo_window(window: Window) -> bool:
@@ -173,7 +171,8 @@ def eval_reproj_res(window: Window, cfg: SolverConfig):
 
 def eval_bias_prior(window: Window, cfg: SolverConfig):
     k = newest_node_index(window)
-    r, J = bias_soft_residual_jac(window.nodes.bg[k], window.nodes.ba[k],
+    k1 = k.reshape(1)  # a 1-element index: no host read, also under vmap
+    r, J = bias_soft_residual_jac(window.nodes.bg[k1][0], window.nodes.ba[k1][0],
                                   cfg.bias_prior_bg_std, cfg.bias_prior_ba_std)
     m = torch.any(window.node_valid).to(r.dtype)
     return r * m, J * m, k
@@ -193,8 +192,10 @@ def eval_prior(window: Window, prior: Prior):
 
 
 def robust_cost(window: Window, prior: Prior, cfg: SolverConfig,
-                params: IntegrationParams, flags: RobustFlags):
-    """Total robust cost 0.5 * sum(rho(chi2)) over all factors."""
+                params: IntegrationParams, flags: RobustFlags, shards: int | None = None):
+    """Total robust cost 0.5 * sum(rho(chi2)) over all factors. With
+    ``shards`` the vision term is summed per shard of landmarks, then over
+    the shards."""
     dtype = window.nodes.p.dtype
     s0, s1 = _preint_pairs(window)
     if is_odo_window(window):
@@ -206,8 +207,9 @@ def robust_cost(window: Window, prior: Prior, cfg: SolverConfig,
     r_g, _ = eval_gnss(window, cfg)
     r_v = eval_reproj_res(window, cfg)
     k = newest_node_index(window)
-    r_b = torch.cat([window.nodes.bg[k] / cfg.bias_prior_bg_std,
-                     window.nodes.ba[k] / cfg.bias_prior_ba_std])
+    k1 = k.reshape(1)
+    r_b = torch.cat([window.nodes.bg[k1][0] / cfg.bias_prior_bg_std,
+                     window.nodes.ba[k1][0] / cfg.bias_prior_ba_std])
     r_b = r_b * torch.any(window.node_valid).to(dtype)
     _, _, prior_cost2 = eval_prior(window, prior)
 
@@ -216,13 +218,23 @@ def robust_cost(window: Window, prior: Prior, cfg: SolverConfig,
     cost = 0.5 * (
         torch.sum(r_pre**2)
         + torch.sum(huber_rho(chi_g) if flags.gnss_kernel else chi_g)
-        + torch.sum(huber_rho(chi_v) if flags.reproj_kernel else chi_v)
+        + landmark_sum(huber_rho(chi_v) if flags.reproj_kernel else chi_v, shards, 1)
         + torch.sum(r_b**2)
         + prior_cost2
     )
     if is_odo_window(window):
         cost = cost + 0.5 * (window.sodo / cfg.sodo_prior_std) ** 2
     return cost
+
+
+def landmark_sum(x, shards: int | None, *dims):
+    """Sum of per-landmark terms ``x`` [L, ...] over the landmarks (and
+    the further axes ``dims``): at once, or with ``shards`` per shard of
+    L / shards landmarks and then over the shards (the JAX ``psum``)."""
+    if shards is None:
+        return x.sum((0,) + dims)
+    xs = x.reshape((shards, x.shape[0] // shards) + x.shape[1:])
+    return psum(xs.sum((1,) + tuple(d + 1 for d in dims)))
 
 
 def _ata(a, b):
@@ -239,21 +251,29 @@ def assemble_blocks(
     sel: FactorSel = None,
     include_soft_priors: bool = True,
     gauge_fix: bool = True,
+    shards: int | None = None,
 ):
     """Schur-structured normal equations ``(Hxx, gx, Hxl, hll, gl, cost)``
-    with frozen/invalid dims masked (zero rows/cols, unit diagonal)."""
+    with frozen/invalid dims masked (zero rows/cols, unit diagonal).
+
+    With ``shards`` (S) the landmarks are cut into S contiguous shards:
+    the vision terms of the state system and the vision cost are summed
+    per shard, then over the shards (JAX's ``psum`` over the mesh axis),
+    while ``Hxl``, ``hll`` and ``gl`` stay per landmark."""
     N, L = window.n_nodes, window.n_landmarks
     DX = window.dim_x
     dtype, dev = window.nodes.p.dtype, window.nodes.p.device
     NL = N * NODE_DOF
     ED = EXT_DOF
-    kw = dict(dtype=dtype, device=dev)
+    # blocks allocated like the window's tensors (``new_zeros``), so that
+    # the indexed writes below also batch under ``torch.func.vmap``
+    like = window.nodes.p
 
-    Hnn = torch.zeros((N, NODE_DOF, N, NODE_DOF), **kw)
-    Hne = torch.zeros((N, NODE_DOF, ED), **kw)
-    Hee = torch.zeros((ED, ED), **kw)
-    g_n = torch.zeros((N, NODE_DOF), **kw)
-    g_e = torch.zeros(ED, **kw)
+    Hnn = like.new_zeros((N, NODE_DOF, N, NODE_DOF))
+    Hne = like.new_zeros((N, NODE_DOF, ED))
+    Hee = like.new_zeros((ED, ED))
+    g_n = like.new_zeros((N, NODE_DOF))
+    g_e = like.new_zeros(ED)
 
     # --- preintegration factors: block-tridiagonal, unique indices ---
     r_pre, J_pre = eval_preint(window, params)
@@ -265,10 +285,13 @@ def assemble_blocks(
     i = torch.arange(N - 1, device=dev)
     j = i + 1
     Aij = _ata(Ji, Jj)
-    Hnn[i, :, i, :] += _ata(Ji, Ji)
-    Hnn[j, :, j, :] += _ata(Jj, Jj)
-    Hnn[i, :, j, :] += Aij
-    Hnn[j, :, i, :] += Aij.transpose(-1, -2)
+    # node-pair blocks through the [a, b, c, d] view of Hnn [a, c, b, d]:
+    # adjacent index tensors, which vmap batches in place
+    Hpair = Hnn.permute(0, 2, 1, 3)
+    Hpair[i, i] += _ata(Ji, Ji)
+    Hpair[j, j] += _ata(Jj, Jj)
+    Hpair[i, j] += Aij
+    Hpair[j, i] += Aij.transpose(-1, -2)
     g_n[i] += mv(Ji.transpose(-1, -2), r_pre)
     g_n[j] += mv(Jj.transpose(-1, -2), r_pre)
     if is_odo_window(window):
@@ -287,7 +310,7 @@ def assemble_blocks(
     chi_g = torch.sum(r_g**2, -1)
     w_g = huber_weight(chi_g) if flags.gnss_kernel else torch.ones_like(chi_g)
     k = torch.arange(N, device=dev)
-    Hnn[k, 0:6, k, 0:6] += w_g[:, None, None] * _ata(J_g, J_g)
+    Hpair[k, k, 0:6, 0:6] += w_g[:, None, None] * _ata(J_g, J_g)
     g_n[:, 0:6] += w_g[:, None] * mv(J_g.transpose(-1, -2), r_g)
     cost = cost + 0.5 * torch.sum(huber_rho(chi_g) if flags.gnss_kernel else chi_g)
 
@@ -310,17 +333,24 @@ def assemble_blocks(
     ref = window.lm_ref.long()
 
     def by_anchor(x):
-        """Sum per-landmark terms [L, ...] into their anchor nodes [N, ...]."""
-        return torch.zeros((N,) + x.shape[1:], **kw).index_add_(0, ref, x)
+        """Sum per-landmark terms [L, ...] into their anchor nodes [N, ...]
+        (per shard, then over the shards)."""
+        if shards is None:
+            return x.new_zeros((N,) + x.shape[1:]).index_add_(0, ref, x)
+        shard_of = torch.arange(L, device=dev) // (L // shards)
+        per_shard = x.new_zeros((shards * N,) + x.shape[1:]).index_add_(
+            0, shard_of * N + ref, x)
+        return psum(per_shard.reshape((shards, N) + x.shape[1:]))
 
-    H_oo = _ata(wJo, Jo).sum(0)  # [N,6,6]
+    lsum = lambda x, *dims: landmark_sum(x, shards, *dims)  # noqa: E731
+    H_oo = lsum(_ata(wJo, Jo))  # [N,6,6]
     H_rr = by_anchor(_ata(wJr, Jr).sum(1))  # [N,6,6]
     H_ro = by_anchor(_ata(wJr, Jo))  # [a=ref, k=obs, 6, 6]
     # block (ref a, obs k) at [a, c, k, d]; its transpose at [k, d, a, c]
     Hpp_v = H_ro.permute(0, 2, 1, 3) + H_ro.permute(1, 3, 0, 2)
-    Hpp_v[k, :, k, :] += H_oo + H_rr
-    Hne_v = _ata(wJo, Je).sum(0) + by_anchor(_ata(wJr, Je).sum(1))  # [N,6,7]
-    Hee_v = _ata(wJe, Je).sum((0, 1))  # [7,7]
+    Hpp_v.permute(0, 2, 1, 3)[k, k] += H_oo + H_rr
+    Hne_v = lsum(_ata(wJo, Je)) + by_anchor(_ata(wJr, Je).sum(1))  # [N,6,7]
+    Hee_v = lsum(_ata(wJe, Je), 1)  # [7,7]
 
     hll = torch.sum(wJl * Jl, (1, 2))
     wJl_ = wJl[..., None]
@@ -328,14 +358,14 @@ def assemble_blocks(
     H_lr = torch.nn.functional.one_hot(ref, N).to(dtype)[:, :, None] * torch.sum(
         wJl_ * Jr, (1, 2)
     )[:, None, :]
-    Hln = torch.zeros((L, N, NODE_DOF), **kw)
+    Hln = like.new_zeros((L, N, NODE_DOF))
     Hln[:, :, 0:6] = H_lo + H_lr
-    Hle = torch.zeros((L, ED), **kw)
+    Hle = like.new_zeros((L, ED))
     Hle[:, :7] = torch.sum(wJl_ * Je, (1, 2))
 
     rv_ = r_v[..., None]
-    g_n_v = torch.sum(wJo * rv_, (0, 2)) + by_anchor(torch.sum(wJr * rv_, (1, 2)))
-    g_e_v = torch.sum(wJe * rv_, (0, 1, 2))
+    g_n_v = lsum(wJo * rv_, 2) + by_anchor(torch.sum(wJr * rv_, (1, 2)))
+    g_e_v = lsum(wJe * rv_, 1, 2)
     g_l = torch.sum(wJl * r_v, (1, 2))
 
     Hnn[:, 0:6, :, 0:6] += Hpp_v
@@ -343,13 +373,14 @@ def assemble_blocks(
     Hee[:7, :7] += Hee_v
     g_n[:, 0:6] += g_n_v
     g_e[:7] += g_e_v
-    cost = cost + 0.5 * torch.sum(huber_rho(chi_v) if flags.reproj_kernel else chi_v)
+    cost = cost + 0.5 * lsum(huber_rho(chi_v) if flags.reproj_kernel else chi_v, 1)
 
     # --- soft bias prior on the newest node ---
     if include_soft_priors:
         r_b, J_b, k_new = eval_bias_prior(window, cfg)
-        Hnn[k_new, :, k_new, :] += J_b.T @ J_b
-        g_n[k_new] += J_b.T @ r_b
+        k1 = k_new.reshape(1)
+        Hpair[k1, k1] += (J_b.T @ J_b)[None]
+        g_n[k1] += (J_b.T @ r_b)[None]
         cost = cost + 0.5 * torch.sum(r_b**2)
 
     # --- soft odometer-scale prior (imu_error_factor.h) ---
@@ -422,14 +453,23 @@ def solve_reduced(H_red, g_red):
     return s * y
 
 
-def schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam):
+def schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam, shards: int | None = None):
     """Solve the damped system (H + lam diag(H)) dx = -g by eliminating the
-    diagonal landmark block. Returns (dx_x [DX], dx_l [L])."""
+    diagonal landmark block. With ``shards`` the landmark terms of the
+    reduced system are summed per shard, then over the shards. Returns
+    (dx_x [DX], dx_l [L])."""
     Hxx_d = Hxx + torch.diag(lam * torch.diagonal(Hxx))
     hll_d = hll * (1.0 + lam)
     Hxl_w = Hxl / hll_d[None, :]
-    H_red = Hxx_d - Hxl_w @ Hxl.T
-    g_red = gx - Hxl_w @ gl
+    if shards is None:
+        H_red = Hxx_d - Hxl_w @ Hxl.T
+        g_red = gx - Hxl_w @ gl
+    else:
+        DX = Hxl.shape[0]
+        per_shard = lambda x: x.reshape(DX, shards, -1).transpose(0, 1)  # noqa: E731
+        Hw = per_shard(Hxl_w)  # [S, DX, L/S]
+        H_red = Hxx_d - psum(Hw @ per_shard(Hxl).transpose(1, 2))
+        g_red = gx - psum((Hw @ gl.reshape(shards, -1, 1))[..., 0])
     dx_x = -solve_reduced(H_red, g_red)
     dx_l = -(gl + Hxl.T @ dx_x) / hll_d
     return dx_x, dx_l

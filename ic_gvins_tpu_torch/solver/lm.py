@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..data.types import IntegrationParams
+from ..parallel import pmax, psum
 from .assembly import (
     RobustFlags,
     assemble_blocks,
@@ -40,25 +41,42 @@ class LMStats(NamedTuple):
     iters_run: int  # iterations executed before the early exit
 
 
+def lm_step(window: Window, prior: Prior, cfg: SolverConfig,
+            params: IntegrationParams, flags: RobustFlags, lam,
+            shards: int | None = None):
+    """One damped Gauss-Newton step, the pure body of the LM loop: the
+    trial window, its robust cost and the step's largest entry (the max
+    over the landmark shards with ``shards``)."""
+    Hxx, gx, Hxl, hll, gl, _ = assemble_blocks(window, prior, cfg, params, flags,
+                                               shards=shards)
+    dx_x, dx_l = schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam, shards=shards)
+    win_new = apply_delta(window, torch.cat([dx_x, dx_l]))
+    cost_new = robust_cost(win_new, prior, cfg, params, flags, shards=shards)
+    dx_max = torch.max(torch.abs(dx_x))
+    if dx_l.numel():
+        l_max = (torch.max(torch.abs(dx_l)) if shards is None
+                 else pmax(torch.abs(dx_l).reshape(shards, -1).amax(1)))
+        dx_max = torch.maximum(dx_max, l_max)
+    return win_new, cost_new, dx_max
+
+
 def lm_run(window: Window, prior: Prior, cfg: SolverConfig,
            params: IntegrationParams, flags: RobustFlags, iters: int,
-           lam0: float = 1e-4):
+           lam0: float = 1e-4, shards: int | None = None):
     """LM with multiplicative damping and Ceres-parity early termination;
-    ``iters`` is the iteration budget."""
-    cost_init = robust_cost(window, prior, cfg, params, flags)
+    ``iters`` is the iteration budget. With ``shards`` the landmark sums
+    run per shard, then over the shards; every decision is made once."""
+    cost_init = robust_cost(window, prior, cfg, params, flags, shards=shards)
     cost = cost_init
     lam = lam0
     naccept = 0
     it = 0
     while it < iters:
-        Hxx, gx, Hxl, hll, gl, _ = assemble_blocks(window, prior, cfg, params, flags)
-        dx_x, dx_l = schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam)
-        dx = torch.cat([dx_x, dx_l])
-        win_new = apply_delta(window, dx)
-        cost_new = robust_cost(win_new, prior, cfg, params, flags)
+        win_new, cost_new, dx_max = lm_step(window, prior, cfg, params, flags, lam,
+                                            shards=shards)
         # one host read per iteration: the accept decision and stop flags
         cost_cur_f, cost_new_f, dx_max = (
-            torch.stack([cost, cost_new, torch.max(torch.abs(dx))]).tolist()
+            torch.stack([cost, cost_new, dx_max]).tolist()
         )
         accept = cost_new_f < cost_cur_f
         it += 1
@@ -79,9 +97,11 @@ def lm_run(window: Window, prior: Prior, cfg: SolverConfig,
                            accepted=naccept, iters_run=it)
 
 
-def chi2_cull(window: Window, cfg: SolverConfig):
+def chi2_cull(window: Window, cfg: SolverConfig, shards: int | None = None):
     """Between-phase chi2 gates. A majority of simultaneously bad GNSS fixes
-    points at the state, not the sensors, and skips the reweight."""
+    points at the state, not the sensors, and skips the reweight. With
+    ``shards`` the culled count is summed per landmark shard, then over the
+    shards."""
     gm = gnss_mask(window)
     r_g, _ = eval_gnss(window._replace(gnss_std=window.gnss_std_base), cfg)
     chi_g = torch.sum(r_g**2, -1)
@@ -103,7 +123,9 @@ def chi2_cull(window: Window, cfg: SolverConfig):
     r_v = eval_reproj_res(window, cfg)
     chi_v = torch.sum(r_v**2, -1)
     obs_valid = window.obs_valid & (chi_v <= 5.991)
-    n_culled = torch.sum(window.obs_valid & ~obs_valid)
+    culled = window.obs_valid & ~obs_valid
+    n_culled = (torch.sum(culled) if shards is None
+                else psum(culled.reshape(shards, -1).sum(1)))
     return window._replace(gnss_std=gnss_std, obs_valid=obs_valid), n_culled
 
 
@@ -115,19 +137,20 @@ def phase_iters(iters: int):
 
 def optimize_impl(window: Window, prior: Prior, cfg: SolverConfig,
                   params: IntegrationParams, iters: int = 20,
-                  do_cull: bool = True):
+                  do_cull: bool = True, shards: int | None = None):
     """Two-phase optimization round. ``do_cull=False`` is the
     initialization-phase solve: one robust LM run, no chi2 gates.
+    ``shards`` runs it landmark-sharded (``parallel/lm_sharded.py``).
     Returns (window, (stats1, stats2, n_culled))."""
     robust = RobustFlags(gnss_kernel=True, reproj_kernel=True)
     if not do_cull:
-        window, stats = lm_run(window, prior, cfg, params, robust, iters)
+        window, stats = lm_run(window, prior, cfg, params, robust, iters, shards=shards)
         return window, (stats, stats, 0)
     it1, it2 = phase_iters(iters)
-    window, stats1 = lm_run(window, prior, cfg, params, robust, it1)
-    window, n_culled = chi2_cull(window, cfg)
+    window, stats1 = lm_run(window, prior, cfg, params, robust, it1, shards=shards)
+    window, n_culled = chi2_cull(window, cfg, shards=shards)
     flags2 = RobustFlags(gnss_kernel=False, reproj_kernel=True)
-    window, stats2 = lm_run(window, prior, cfg, params, flags2, it2)
+    window, stats2 = lm_run(window, prior, cfg, params, flags2, it2, shards=shards)
     return window, (stats1, stats2, n_culled)
 
 

@@ -100,9 +100,9 @@ def run_sequence(cfg, duration=15.0, with_vision=False, gnss_std=0.05, seed=0,
     only until ``gnss_until`` and not in ``gnss_outage`` = [t0, t1); no
     IMU samples in ``imu_gap`` = (t0, t1], the next one spanning the gap
     (the ROS node computes increments as rate times the time since the last
-    sample, ``fusion_ros.cc:145-150``). ``mesh`` is refused, as
-    ``Estimator.set_mesh`` refuses it. Returns (estimator, trajectory,
-    params)."""
+    sample, ``fusion_ros.cc:145-150``). A ``mesh`` (``parallel.Mesh``)
+    makes the rounds landmark-sharded (``Estimator.set_mesh``). Returns
+    (estimator, trajectory, params)."""
     est = Estimator(cfg, device=device)
     if mesh is not None:
         est.set_mesh(mesh)

@@ -88,7 +88,25 @@ def pixel_to_cam(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
     return torch.cat([xy, torch.ones_like(xy[..., :1])], -1)
 
 
+def pixel_to_unit_cam(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
+    """Distorted pixel -> unit bearing vector in the camera frame."""
+    pc = pixel_to_cam(cam, uv)
+    return pc / torch.linalg.norm(pc, dim=-1, keepdim=True)
+
+
 def world_to_pixel(cam: Camera, pw, r_wc, t_wc):
     """World point -> pixel through the camera pose (R_wc, t_wc)."""
     pc = (r_wc.transpose(-1, -2) @ (pw - t_wc)[..., None])[..., 0]
     return cam_to_pixel(cam, pc)
+
+
+def pixel_to_world(cam: Camera, uv, depth, r_wc, t_wc):
+    """Distorted pixel at z-depth ``depth`` -> world point through the
+    camera pose (R_wc, t_wc)."""
+    pc = pixel_to_cam(cam, uv) * depth[..., None]
+    return (r_wc @ pc[..., None])[..., 0] + t_wc
+
+
+def reprojection_error_px(cam: Camera, pw, r_wc, t_wc, uv):
+    """Pixel-space reprojection error norm (``camera.cc:153-157``)."""
+    return torch.linalg.norm(world_to_pixel(cam, pw, r_wc, t_wc) - uv, dim=-1)

@@ -8,9 +8,9 @@ Sampson distance, and the best-supported candidate is refit on its
 inliers. Everything runs in float64 on the device of the points, with no
 data-dependent trip counts and no host reads.
 
-``fundamental_ransac`` draws the subsets from an explicit
-``torch.Generator``; ``fundamental_ransac_idx`` takes the sample indices,
-so two implementations can be fed the same draws.
+``fundamental_ransac`` maps given uniform numbers to the 8-point subsets
+as the JAX package does (the front end passes JAX's own draws,
+``common/prng.py``); ``fundamental_ransac_idx`` takes the sample indices.
 """
 
 import math
@@ -67,15 +67,13 @@ def _sampson_sq(F, p0h, p1h):
     return num / torch.clamp(den, min=1e-12)
 
 
-def sample_indices(valid, generator, n_hypotheses: int = N_HYPOTHESES):
+def sample_indices(valid, u):
     """(H, 8) indices into the points, drawn uniformly (with replacement)
-    from the valid ones. The uniform numbers come from ``generator`` on its
-    own device, so a CPU generator gives the same draws for points on any
-    device."""
+    from the valid ones: the uniforms ``u`` (H, 8) in [0, 1), float64,
+    scaled by the valid count and truncated."""
     order = torch.argsort((~valid).to(torch.uint8), stable=True)  # valid first
     m = torch.clamp(valid.sum(), min=1)
-    u = torch.rand((n_hypotheses, 8), generator=generator, dtype=torch.float64,
-                   device=generator.device).to(valid.device)
+    u = torch.as_tensor(u, dtype=torch.float64, device=valid.device)
     return order[torch.minimum((u * m).to(torch.int64), m - 1)]
 
 
@@ -109,14 +107,13 @@ def fundamental_ransac_idx(pts0, pts1, valid, threshold, idx):
     return torch.where(better, inliers_r, inliers), torch.where(better, Fr_px, F_px[best])
 
 
-def fundamental_ransac(pts0, pts1, valid, threshold, generator,
-                       n_hypotheses: int = N_HYPOTHESES):
+def fundamental_ransac(pts0, pts1, valid, threshold, u):
     """RANSAC inlier mask for the epipolar constraint between two views.
 
     pts0, pts1: (N, 2) undistorted pixel coordinates; valid: (N,) bool;
-    threshold: inlier Sampson distance in pixels; generator: the
-    ``torch.Generator`` the 8-point subsets are drawn from. Returns
-    (inliers (N,) bool, F (3, 3) in pixel coordinates). Invalid entries are
-    never inliers."""
-    idx = sample_indices(valid, generator, n_hypotheses)
+    threshold: inlier Sampson distance in pixels; u: (H, 8) uniforms in
+    [0, 1) the 8-point subsets are drawn with (H = N_HYPOTHESES in the front
+    end). Returns (inliers (N,) bool, F (3, 3) in pixel coordinates).
+    Invalid entries are never inliers."""
+    idx = sample_indices(valid, u)
     return fundamental_ransac_idx(pts0, pts1, valid, threshold, idx)

@@ -57,6 +57,11 @@ def _to_cam(pw, r_wc, t_wc):
     return mv(r_wc.transpose(-1, -2), pw - t_wc)
 
 
+def depth_in_frame(pw, r_wc, t_wc):
+    """z-depth of world points in a camera frame (R_wc, t_wc)."""
+    return _to_cam(pw, r_wc, t_wc)[..., 2]
+
+
 def _proj_err(pc, xy):
     z = pc[..., 2:]
     z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)

@@ -8,9 +8,15 @@ estimator is not run here: its XLA:CPU compiles take minutes.
 The estimator must make the same decisions as JAX (events, node times,
 keyframes, LM steps and iterations per round, culling) and follow its
 trajectory within chip_smoke's TRAJ_POS_ATOL / TRAJ_ATT_ATOL, and meet
-each JAX test's own bound. The pipeline draws its FM-RANSAC subsets from
-another generator than JAX, so its tracks and rounds differ; it is held to
-tests/test_pipeline.py's checks and to the JAX pipeline's ATE within
+each JAX test's own bound. The pipeline draws JAX's FM-RANSAC uniforms
+(``common/prng.py``) and makes the JAX pipeline's rounds, but not every
+one of its tracks: an 8-point subset drawn with a repeated index has a
+two-dimensional null space, whose eigenvector each LAPACK picks
+otherwise, and on this scene such a subset wins frame 14's RANSAC in JAX
+(24 inliers) and not in the port (23). The port then keeps one landmark
+more from event 27 on; it is held to the JAX pipeline's events, node
+times, keyframes and per-round LM steps, iterations and culls exactly,
+to its landmark count within one, and to its ATE within
 PIPELINE_ATE_VS_JAX."""
 
 import os
@@ -31,7 +37,7 @@ from ic_gvins_tpu_torch.engine.estimator import TRACKING_NORMAL, Estimator  # no
 from ic_gvins_tpu_torch.engine.pipeline import Pipeline  # noqa: E402
 
 SMALL = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_small.npz")
-PIPELINE_ATE_VS_JAX = 0.1  # m
+PIPELINE_ATE_VS_JAX = 0.005  # m (1.2 mm apart on the CPU)
 # (t_min, bound on the RMS or the max of the errors after t_min): the JAX tests'
 BOUNDS = {"gins": (5.0, "rmse", 0.13), "gvins": (5.0, "rmse", 0.13),
           "outage": (10.0, "max", 1.0)}
@@ -80,10 +86,21 @@ def test_estimator_matches_jax(small, name):
 def test_pipeline_against_jax(small):
     """tests/test_pipeline.py's scene: 8 s, 320 x 240 frames at 5 Hz from
     the numpy sprite renderer, plain KLT, no CLAHE. Initializes, makes
-    keyframes and landmarks, stays under 0.45 m, and within
-    PIPELINE_ATE_VS_JAX of the JAX pipeline's ATE."""
+    keyframes and landmarks, stays under 0.45 m; the JAX pipeline's 16
+    rounds with their LM steps, iterations and culls, its events with the
+    landmark count within one, and its ATE within PIPELINE_ATE_VS_JAX."""
     s = chip_smoke.scenario(small, "pipeline")
     pipe, got, tracked = chip_smoke.run_pipeline(s, "cpu", use_clahe=False)
+    ref = _ref(s)
+    assert len(got["stats"]) == len(ref["stats"]) == 16
+    cols = [i for i, k in enumerate(chip_smoke.STATS_KEYS)
+            if k not in ("cost0", "cost1", "reproj_rms")]
+    np.testing.assert_array_equal(got["stats"][:, cols], ref["stats"][:, cols])
+    assert got["log"].shape == ref["log"].shape
+    np.testing.assert_array_equal(np.delete(got["log"], 3, 1), np.delete(ref["log"], 3, 1))
+    assert np.abs(got["log"][:, 3] - ref["log"][:, 3]).max() <= 1
+    np.testing.assert_array_equal(got["log_node_t"], ref["log_node_t"])
+    np.testing.assert_array_equal(got["log_node_kf"], ref["log_node_kf"])
     est = pipe.est
     assert est.state != 0, "no initialization"
     assert est.n_keyframes >= 2, "no visual keyframes"
@@ -92,19 +109,7 @@ def test_pipeline_against_jax(small):
     e = chip_smoke.trajectory_errors(got["traj_t"], got["traj_p"], s, chip_smoke.PIPELINE_T_MIN)
     ate = float(np.sqrt(np.mean(e**2)))
     assert ate < chip_smoke.PIPELINE_ATE, ate
-    assert abs(ate - float(_ref(s)["ate_rmse"])) <= PIPELINE_ATE_VS_JAX, (ate, _ref(s)["ate_rmse"])
-
-
-def _head(s, t_end):
-    """The scenario's streams up to ``t_end``."""
-    out = dict(s)
-    for prefix, keys in (("imu_t", ("imu_t", "imu_dt", "imu_dth", "imu_dv")),
-                         ("gnss_t", ("gnss_t", "gnss_p", "gnss_std")),
-                         ("frame_t", ("frame_t", "frame_n"))):
-        keep = s[prefix] <= t_end
-        for k in keys:
-            out[k] = s[k][keep]
-    return out
+    assert abs(ate - float(ref["ate_rmse"])) <= PIPELINE_ATE_VS_JAX, (ate, ref["ate_rmse"])
 
 
 @pytest.mark.parametrize("option", ["stat_phase_split", "host_predict_off"])
@@ -116,7 +121,7 @@ def test_estimator_options_match_jax(small, option):
     s = chip_smoke.scenario(small, "gvins")
     kw = {"stat_phase_split": {"stat_phase_split": True},
           "host_predict_off": {"host_predict": False}}[option]
-    est, got = chip_smoke.run_estimator(_head(s, 7.0), "cpu", **kw)
+    est, got = chip_smoke.run_estimator(chip_smoke.head(s, 7.0), "cpu", **kw)
     ref = _ref(s)
     n_ev, n_rounds = len(got["log"]), len(got["stats"])
     assert n_rounds >= 10 and est.n_keyframes > 0
@@ -140,12 +145,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 @pytest.mark.parametrize("option", ["recenter_threshold", "set_mesh", "run_kaist_f32"])
 def test_unported_options_raise(option):
     """Options and entry points the port does not have refuse to run
-    instead of being ignored."""
+    instead of being ignored; ``set_mesh`` (ported) refuses a mesh whose
+    shard count does not divide the landmark capacity."""
+    if option == "set_mesh":
+        from ic_gvins_tpu_torch.parallel import Mesh
+
+        with pytest.raises(ValueError, match="must divide"):
+            Estimator(EngineConfig(max_nodes=4, max_landmarks=4), device="cpu").set_mesh(
+                Mesh({"lm": 3}, device="cpu"))
+        return
     with pytest.raises(NotImplementedError):
         if option == "recenter_threshold":
             Estimator(EngineConfig(recenter_threshold=20.0), device="cpu")
-        elif option == "set_mesh":
-            Estimator(EngineConfig(max_nodes=4, max_landmarks=4), device="cpu").set_mesh(None)
         else:
             from ic_gvins_tpu_torch.tools import run_kaist
 

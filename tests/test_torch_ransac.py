@@ -1,7 +1,8 @@
 """PyTorch port: FM-RANSAC against the JAX package. The 8-point subsets
 are drawn once, as the JAX function draws them from its key, and handed
-to the port's ``fundamental_ransac_idx``; the port's own generator is
-held by properties of the inlier set."""
+to the port's ``fundamental_ransac_idx``; the port's ``fundamental_ransac``
+on the front end's uniforms (``common/prng.py``) is held by properties of
+the inlier set."""
 
 import os
 import sys
@@ -15,6 +16,7 @@ import torch
 from test_torch_solver import one_torch_thread  # noqa: F401
 
 from ic_gvins_tpu.vision import ransac as jransac
+from ic_gvins_tpu_torch.common import prng
 from ic_gvins_tpu_torch.vision import ransac as transac
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -60,9 +62,8 @@ def test_sample_indices_follow_the_reference_rule():
     """Valid indices packed first (stable), u * m truncated, capped at m - 1."""
     valid = np.ones(40, bool)
     valid[::3] = False
-    gen = torch.Generator().manual_seed(5)
-    idx = transac.sample_indices(torch.from_numpy(valid), gen, 64)
     u = torch.rand((64, 8), generator=torch.Generator().manual_seed(5), dtype=torch.float64)
+    idx = transac.sample_indices(torch.from_numpy(valid), u)
     order = np.argsort(~valid, kind="stable")
     m = int(valid.sum())
     np.testing.assert_array_equal(idx.numpy(), order[np.minimum((u.numpy() * m).astype(int), m - 1)])
@@ -73,17 +74,18 @@ def test_sample_indices_follow_the_reference_rule():
 def test_ransac_with_own_generator(seed):
     """200 correspondences, 20% gross outliers, every fifth entry invalid:
     at least 95% of the true inliers kept, no gross outlier kept, invalid
-    entries never inliers, rank-2 F, and the same result for the same seed."""
+    entries never inliers, rank-2 F, and the same result for the same
+    draws (the front end's uniforms of frame ``seed``)."""
     uv0, uv1, is_out = two_view_scene(200, 40, seed=10 + seed)
     valid = np.ones(200, bool)
     valid[4::5] = False
     args = (torch.from_numpy(uv0), torch.from_numpy(uv1), torch.from_numpy(valid), 1.5)
-    inl, F = transac.fundamental_ransac(*args, torch.Generator().manual_seed(seed))
+    inl, F = transac.fundamental_ransac(*args, prng.ransac_uniforms(seed))
     inl = inl.numpy()
     assert not inl[is_out].any()
     assert not inl[~valid].any()
     assert inl[valid & ~is_out].mean() >= 0.95
     s = np.linalg.svd(F.numpy(), compute_uv=False)
     assert s[2] < 1e-8 * s[0]
-    inl2, F2 = transac.fundamental_ransac(*args, torch.Generator().manual_seed(seed))
+    inl2, F2 = transac.fundamental_ransac(*args, prng.ransac_uniforms(seed))
     assert torch.equal(inl2, torch.from_numpy(inl)) and torch.equal(F2, F)

@@ -11,6 +11,7 @@ positions from geodetic ones (differences of ~6.4e6 m ECEF vectors, whose
 last bits torch's and XLA's sin/cos round apart); PRINTED for numbers
 read back from text files both sides wrote with 9 decimals."""
 
+import json
 import os
 import sys
 import zlib
@@ -176,6 +177,35 @@ def test_convert_bag_matches_jax(tmp_path, compression):
     for name in os.listdir(os.path.join(out["port"], "image")):
         a, b = (timage.read_png(os.path.join(out[k], "image", name)) for k in out)
         np.testing.assert_array_equal(a, b)
+
+
+def test_convert_bag_command_matches_jax(tmp_path, capsys, monkeypatch):
+    """``python -m ic_gvins_tpu_torch.tools.convert_bag`` with the JAX
+    command's arguments: the same JSON lines (counts, topic list) and the
+    same CSV files as ``tools/convert_bag.py``."""
+    from test_rosbag import make_bag
+
+    import tools.convert_bag as jcmd
+    from ic_gvins_tpu_torch.tools import convert_bag as tcmd
+
+    bag = str(tmp_path / "t.bag")
+    make_bag(bag, compression="bz2")
+    lines = {}
+    for name, run in (("port", tcmd.main), ("jax", jcmd.main)):
+        for extra in (["--image-topic", "/cam/image"], ["--list-topics"]):
+            argv = [bag, str(tmp_path / name)] + extra
+            if name == "port":
+                run(argv)
+            else:
+                monkeypatch.setattr(sys, "argv", ["convert_bag.py"] + argv)
+                run()
+            lines[name, extra[0]] = capsys.readouterr().out
+    for extra in ("--image-topic", "--list-topics"):
+        assert lines["port", extra] == lines["jax", extra]
+    assert json.loads(lines["port", "--image-topic"]) == dict(imu=20, gnss=3, images=2)
+    for csv in ("xsens_imu.csv", "vrs_gps.csv"):
+        a, b = (open(tmp_path / k / "sensor_data" / csv, "rb").read() for k in ("port", "jax"))
+        assert a == b, csv
 
 
 # --- writers, file layer, drawer, metrics ----------------------------------------

@@ -120,7 +120,8 @@ def test_streams_match_fixture(small, name):
 def test_run_sequence_feeds_gap_and_outages(small, monkeypatch):
     """The dropout is left out and the next sample spans it (the fixture's
     gap_native streams); fixes only until gnss_until and outside the
-    outage; mesh is refused."""
+    outage; a mesh reaches Estimator.set_mesh, which refuses one whose
+    shards do not divide the landmark capacity."""
     monkeypatch.setattr(sequence, "Estimator", Recorder)
     s = chip_smoke.scenario(small, "gap_native")
     cfg = chip_smoke.engine_config(tconfig, s)
@@ -134,8 +135,11 @@ def test_run_sequence_feeds_gap_and_outages(small, monkeypatch):
     fixes = [c[1] for c in rec.calls if c[0] == "gnss"]
     assert fixes == [t for t in s["gnss_t"] if t <= 9.0 and not 3.0 <= t < 5.0]
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError):
-        sequence.run_sequence(cfg, duration=1.0, mesh=object(), device="cpu")
+    from ic_gvins_tpu_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="must divide"):
+        sequence.run_sequence(cfg, duration=1.0, mesh=Mesh({"lm": 7}, device="cpu"),
+                              device="cpu")
 
 
 def test_ate_matches_jax():

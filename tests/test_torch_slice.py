@@ -257,7 +257,9 @@ def test_port_imports_no_jax():
         "        'engine.drawer', 'data.kaist', 'data.image', 'data.rosbag', 'eval.trajectory',\n"
         "        'ins.preintegration_odo', 'tools.run_kaist', 'vision.klt_cuda', 'native',\n"
         "        'data.simulator', 'tools.sequence', 'tools.run_sim', 'tools.run_urban',\n"
-        "        'common.timecost'}\n"
+        "        'common.timecost', 'common.prng', 'parallel', 'parallel.multi_seq',\n"
+        "        'parallel.lm_sharded', 'parallel.schur', 'parallel.ba_nodes',\n"
+        "        'tools.convert_bag'}\n"
         "missing = {f'ic_gvins_tpu_torch.{n}' for n in need} - set(names)\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ic_gvins_tpu')]\n"

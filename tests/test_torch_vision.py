@@ -46,6 +46,31 @@ def cams():
     return jc, to_torch(tcam.Camera, to_numpy(jc), "cpu")
 
 
+def test_camera_and_depth_helpers_match_jax(cams):
+    """``pixel_to_unit_cam``, ``pixel_to_world``, ``reprojection_error_px``
+    and ``triangulation.depth_in_frame`` on the same inputs: 1e-9."""
+    jc, tc = cams
+    rng = np.random.default_rng(4)
+    uv = rng.random((32, 2)) * [1278, 1022]
+    depth = 2 + 20 * rng.random(32)
+    r = np.asarray(jrot.quat_to_matrix(jnp.asarray(np.r_[0.9, 0.1, -0.3, 0.2]
+                                                   / np.linalg.norm([0.9, 0.1, -0.3, 0.2]))))
+    t = np.array([3.0, -1.0, 0.5])
+    pw = np.asarray(jcam.pixel_to_world(jc, jnp.asarray(uv), jnp.asarray(depth), r, t))
+    pw_noisy = pw + 0.05 * rng.standard_normal(pw.shape)
+    pairs = (
+        (tcam.pixel_to_unit_cam(tc, _t(uv)), jcam.pixel_to_unit_cam(jc, jnp.asarray(uv))),
+        (tcam.pixel_to_world(tc, _t(uv), _t(depth), _t(r), _t(t)), pw),
+        (tcam.reprojection_error_px(tc, _t(pw_noisy), _t(r), _t(t), _t(uv)),
+         jcam.reprojection_error_px(jc, jnp.asarray(pw_noisy), r, t, jnp.asarray(uv))),
+        (ttri.depth_in_frame(_t(pw), _t(r), _t(t)), jtri.depth_in_frame(jnp.asarray(pw), r, t)),
+    )
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(ttri.depth_in_frame(_t(pw), _t(r), _t(t)).numpy(), depth,
+                               rtol=1e-9)
+
+
 def test_camera_matches_jax(cams):
     """float64 closed forms and the same 8-step undistortion: 1e-12."""
     jc, tc = cams
