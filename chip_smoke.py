@@ -14,7 +14,8 @@ window (preintegrate -> triangulate -> ``optimize_impl(iters=20)`` ->
 with ``EngineConfig()``, and the ``Estimator`` with the wheel odometer
 and its checkpoints; then the simulator and the two commands that run on
 it, ``run_sim`` and ``run_urban``; then the ``parallel/`` package (a
-batch of 32 windows, landmark shards, node chunks). Phases:
+batch of 32 windows, landmark shards, node chunks); then the engine's
+float32 mode on these paths. Phases:
 
 1. the card's name and power limit; build the CUDA kernel (nvcc, sm_90a);
 2. KLT kernel vs its plain PyTorch version at slice shapes (200 features)
@@ -79,11 +80,24 @@ batch of 32 windows, landmark shards, node chunks). Phases:
    ``ba_nodes_solve`` at N = 256 nodes, 8 chunks, a band of 8, against the
    one-chunk solve and the JAX solves. Phase 9 launches no hand kernel:
    the JAX package writes these modules in jnp, outside any Pallas
-   kernel.
+   kernel;
+10. the float32 engine mode (``dtype=torch.float32``: window re-centering,
+   the Newton-Schulz reduced solve, the float32 marginalization) against
+   the JAX package's float32 mode in ``tests/fixtures/torch_f32.npz``
+   (``tools/make_torch_f32_fixture.py``): (a) ``solve_reduced`` and
+   ``marginalize_node0`` in float32, then phase 4's round in float32
+   beside float64 (stage ms, launches); (b) ``Estimator(EngineConfig(),
+   dtype=torch.float32)`` on phase 5's streams against the JAX float32
+   and float64 runs, its stage medians beside phase 5's; (c) ``run_kaist
+   --f32`` on phase 6's directory; (d) ``run_urban --f32`` on phase 8's
+   drive (no ATE bound: the JAX float32 replay diverges on this route);
+   (e) ``optimize_batch`` of phase 9's 32 windows in float32 against each
+   one's float32 ``optimize``.
 
-Phases 3 to 9 run with the kernel's launch count set to 0 before each and
-read after it; the ``launches`` of the kernels line sums phases 3, 6 and
-8, and phase 9 must launch it no time.
+Phases 3 to 10 run with the kernel's launch count set to 0 before each and
+read after it; the ``launches`` of the kernels line sums phases 3, 6, 8
+and 10 (c) and (d); phase 9 and phase 10 (a), (b) and (e) must launch it
+no time.
 Every phase raises on failure. Needs a CUDA device: without one it exits
 with code 1 and prints no result. Prints a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -107,6 +121,7 @@ ODO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_estimator_odo.npz")
 SIM_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_sim.npz")
 URBAN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_urban90.npz")
 PARALLEL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_parallel.npz")
+F32_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_f32.npz")
 
 IMG_W, IMG_H = 1278, 1022  # engine default camera
 N_FEATURES = 200
@@ -217,6 +232,27 @@ URBAN_RESUME_ATE = 1.0  # m, max
 # ~0.1 s of spinning at 2 GHz: far longer than the host takes to enqueue
 # 50 calls of the KLT wrapper (~0.13 ms each on the slowest host seen)
 SPIN_CYCLES = 200_000_000
+# Phase 10, the float32 engine mode, against tests/fixtures/torch_f32.npz
+# (tools/make_torch_f32_fixture.py: the JAX package with x64 off). The
+# reduced solve: the 24 x 192 round's scaled system has condition number
+# 2.7e4, so float32 solves that sum in another order part by ~1e-4 to 1e-3
+# (the CPU: 4.0e-4 from JAX, 7.7e-3 from float64); the SPD matrix's
+# (condition 4) by rounding. tests/test_torch_f32.py holds the same bounds.
+F32_SOLVE_VS_JAX = {"round": 1e-3, "spd": 1e-4}
+F32_SOLVE_VS_F64 = {"round": 1.5e-2, "spd": 1e-5}
+F32_PRIOR_FRO = 4e-3  # relative Frobenius of the marginalization's H vs JAX
+F32_PRIOR_EIG_FLOOR = -1e-6  # its smallest eigenvalue, relative to the largest
+F32_TIME_ATOL = 1e-5  # s, float32 node times against the 200 Hz truth grid
+# the float32 round's optimum vs JAX's float64 one (the CPU: 1.4e-2 m)
+F32_ROUND_POS_ATOL = 0.05  # m
+# the float32 Estimator at full width vs the JAX float32 run of its streams:
+# float32 LM decisions (accept on a cost comparison) may part on the card,
+# so the trajectory and ATE are held, not the events
+F32_TRAJ_VS_JAX32 = 0.05  # m
+F32_ATE_MARGIN = 0.02  # m over JAX float32's ATE
+# a float32 batch member against its own float32 round: float32 accept
+# decisions part on the near-optimal members (the CPU: 9.6e-4 m)
+F32_BATCH_POS_ATOL = 5e-3  # m
 
 
 def log(msg):
@@ -376,11 +412,12 @@ def summarize(est):
     return out
 
 
-def trajectory_errors(traj_t, traj_p, s, t_min):
+def trajectory_errors(traj_t, traj_p, s, t_min, atol_t=1e-9):
     """Position errors of the trajectory entries at or after ``t_min``
-    against the scenario's 200 Hz truth."""
+    against the scenario's 200 Hz truth; a float32 engine's node times lie
+    within its rounding (``atol_t``) of the grid."""
     idx = np.rint((traj_t - s["truth_t"][0]) * 200.0).astype(np.int64)
-    check(np.all(np.abs(s["truth_t"][idx] - traj_t) < 1e-9), "trajectory off the truth grid")
+    check(np.all(np.abs(s["truth_t"][idx] - traj_t) < atol_t), "trajectory off the truth grid")
     sel = traj_t >= t_min
     return np.linalg.norm(traj_p[sel] - s["truth_p"][idx[sel]], axis=1)
 
@@ -846,34 +883,29 @@ def perturb_round(win, opt, b):
     return out
 
 
-def phase_round(dev):
-    import torch
-
+def round_once(win, prior, cfg, params, imu):
+    """Phase 4's keyframe round (preintegrate -> triangulate -> optimize ->
+    marginalize) on the given inputs, each stage timed on a synchronized
+    host clock: ((preintegrated window, inverse depths, triangulated flags,
+    optimized window, LM stats, slid window, prior), stage ms)."""
     from ic_gvins_tpu_torch.engine.keyframe import preintegrate_window, triangulate_window
     from ic_gvins_tpu_torch.factors.marginalization import marginalize_and_slide
     from ic_gvins_tpu_torch.solver.lm import optimize_impl
 
-    (win, prior, cfg, params, imu), ref = round_inputs(dev)
+    ms = {}
+    w, ms["preint"] = timed(lambda: preintegrate_window(win, params, imu))
+    (w, invd, ok), ms["triangulate"] = timed(lambda: triangulate_window(w))
+    (w_opt, stats), ms["optimize"] = timed(
+        lambda: optimize_impl(w, prior, cfg, params, iters=ITERS))
+    (w_sl, pr), ms["marginalize"] = timed(
+        lambda: marginalize_and_slide(w_opt, prior, cfg, params))
+    return (w, invd, ok, w_opt, stats, w_sl, pr), ms
 
-    def stage(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
-    def run():
-        ms = {}
-        w, ms["preint"] = stage(lambda: preintegrate_window(win, params, imu))
-        (w, invd, ok), ms["triangulate"] = stage(lambda: triangulate_window(w))
-        (w_opt, (s1, s2, nc)), ms["optimize"] = stage(
-            lambda: optimize_impl(w, prior, cfg, params, iters=ITERS))
-        (w_sl, pr), ms["marginalize"] = stage(
-            lambda: marginalize_and_slide(w_opt, prior, cfg, params))
-        return w, invd, ok, w_opt, s1, s2, nc, w_sl, pr, ms
-
+def phase_round(dev):
+    inputs, ref = round_inputs(dev)
     for rep in range(2):  # the first run warms the solver libraries
-        w, invd, ok, w_opt, s1, s2, nc, w_sl, pr, ms = run()
+        (w, invd, ok, w_opt, (s1, s2, nc), w_sl, pr), ms = round_once(*inputs)
         errs = {}
         for k, v in ref["preint"].items():
             errs[f"preint.{k}"] = rel_err(v, getattr(w.preint, k).cpu())
@@ -906,30 +938,31 @@ def phase_round(dev):
         + f", round {sum(ms.values()):.2f}")
 
 
-def run_estimator(s, dev, on_event=None, mesh=None, **overrides):
+def run_estimator(s, dev, on_event=None, mesh=None, dtype=None, **overrides):
     """The port's ``Estimator`` (the scenario's configuration with
-    ``overrides``; its rounds landmark-sharded over ``mesh`` if given)
-    fed the scenario's ideal tracks on ``dev``, calling ``on_event(e, est)``
-    after event e: (estimator, feed log + summary)."""
+    ``overrides``, in ``dtype``, float64 by default; its rounds
+    landmark-sharded over ``mesh`` if given) fed the scenario's ideal
+    tracks on ``dev``, calling ``on_event(e, est)`` after event e:
+    (estimator, feed log + summary)."""
     import torch
 
     from ic_gvins_tpu_torch.engine import config as tconfig
     from ic_gvins_tpu_torch.engine.estimator import Estimator
 
-    est = Estimator(engine_config(tconfig, s, **overrides), device=dev)
+    est = Estimator(engine_config(tconfig, s, **overrides), device=dev,
+                    dtype=dtype or torch.float64)
     if mesh is not None:
         est.set_mesh(mesh)
     if "ext_p" in s:  # the scenario's camera, set on the window as the JAX tests do
-        est.window = est.window._replace(ext_p=torch.as_tensor(s["ext_p"], device=dev),
-                                         ext_q=torch.as_tensor(s["ext_q"], device=dev))
+        est.window = est.window._replace(ext_p=est._dev(s["ext_p"]), ext_q=est._dev(s["ext_q"]))
     log = feed(est, est, s, lambda j: est.add_frame_observations(*observations(s, j)),
                on_event=None if on_event is None else lambda e: on_event(e, est))
     return est, {**log, **summarize(est)}
 
 
-def run_pipeline(s, dev, use_clahe, **overrides):
+def run_pipeline(s, dev, use_clahe, dtype=None, **overrides):
     """The port's ``Pipeline`` (the scenario's configuration with
-    ``overrides``) fed the scenario's IMU, GNSS and frames that the sprite
+    ``overrides``, in ``dtype``, float64 by default) fed the scenario's IMU, GNSS and frames that the sprite
     renderer draws with the configured camera at the truth camera poses:
     (pipeline, feed log + summary, frames the KLT tracked)."""
     from ic_gvins_tpu_torch.data.simulator import render_sprite_frame_np
@@ -937,7 +970,8 @@ def run_pipeline(s, dev, use_clahe, **overrides):
     from ic_gvins_tpu_torch.engine.pipeline import Pipeline
 
     cfg = engine_config(tconfig, s, **overrides)
-    pipe = Pipeline(cfg, device=dev, use_clahe=use_clahe)
+    pipe = Pipeline(cfg, device=dev, use_clahe=use_clahe,
+                    **({} if dtype is None else {"dtype": dtype}))
     fe, tracked = pipe.frontend, [0]
 
     def on_frame(j):
@@ -950,14 +984,17 @@ def run_pipeline(s, dev, use_clahe, **overrides):
     return pipe, {**log, **summarize(pipe.est)}, tracked[0]
 
 
-def resume_estimator(s, path, dev, start):
-    """A fresh port ``Estimator`` for scenario ``s`` resumed from the
-    checkpoint at ``path`` (either package's) and fed the calls after event
-    ``start - 1``: (estimator, feed log + summary)."""
+def resume_estimator(s, path, dev, start, dtype=None):
+    """A fresh port ``Estimator`` (in ``dtype``, float64 by default) for
+    scenario ``s`` resumed from the checkpoint at ``path`` (either
+    package's) and fed the calls after event ``start - 1``: (estimator,
+    feed log + summary)."""
+    import torch
+
     from ic_gvins_tpu_torch.engine import config as tconfig
     from ic_gvins_tpu_torch.engine.estimator import Estimator
 
-    est = Estimator(engine_config(tconfig, s), device=dev)
+    est = Estimator(engine_config(tconfig, s), device=dev, dtype=dtype or torch.float64)
     est.load_checkpoint(path)
     log = feed(est, est, s, lambda j: est.add_frame_observations(*observations(s, j)),
                start=start)
@@ -1053,8 +1090,9 @@ def phase_estimator(dev):
         f"events, node times, keyframes, LM steps; trajectory vs JAX {dp:.3g} m (<= "
         f"{TRAJ_POS_ATOL}), {dq:.3g} rad (<= {CARD_TRAJ_ATT_ATOL}); "
         f"ATE {np.sqrt(np.mean(e ** 2)):.4f} m (JAX {float(ref['ate_rmse']):.4f})")
-    log("phase 5 " + stage_line(est, wall, float(s["imu_t"][-1])))
-    return {**s, "cfg_json": native["cfg_json"]}, got
+    line = stage_line(est, wall, float(s["imu_t"][-1]))
+    log("phase 5 " + line)
+    return {**s, "cfg_json": native["cfg_json"]}, got, line
 
 
 def head(s, t_end):
@@ -1169,7 +1207,7 @@ def phase_batch(dev):
         f"{BATCH // 4} single rounds (profiled); busy share {busy_b:.4f} batched ({dev_b:.2f} "
         f"ms of device time in {wall_b:.2f} ms profiled), {busy_s:.4f} single ({dev_s:.2f} "
         f"in {wall_s:.2f} ms)")
-    return wins, prior, cfg, params, fx
+    return wins, prior, cfg, params, fx, dict(ms=ms_b, launches=n_b, busy=busy_b, single_ms=ms_s)
 
 
 def phase_sharded(dev, wins, prior, cfg, params, phase5):
@@ -1202,7 +1240,7 @@ def phase_sharded(dev, wins, prior, cfg, params, phase5):
         f"positions {err['p']:.3g} m, velocities {err['v']:.3g}, attitudes {err['q']:.3g}, "
         f"inverse depths {err['invd']:.3g}; {ms_s:.2f} ms sharded, {ms_1:.2f} ms single")
 
-    s5, got5 = phase5
+    s5, got5, _ = phase5
     s = head(s5, SHARDED_S)
     (est, got), ms_e = timed(lambda: run_estimator(s, dev, mesh=mesh))
     n_ev, n_rounds = len(got["log"]), len(got["stats"])
@@ -1305,14 +1343,10 @@ def phase_pipeline(dev, work):
     a KAIST-layout directory written from the defaults fixture (IMU and
     GNSS as CSV, 150 frames of 1278 x 1022 rendered at the truth camera
     poses as 8-bit PNGs, pinhole: no distortion)."""
-    import torch
-
     from ic_gvins_tpu_torch.data import kaist
     from ic_gvins_tpu_torch.data.image import load_gray
     from ic_gvins_tpu_torch.engine import config as tconfig
     from ic_gvins_tpu_torch.engine.estimator import TRACKING_NORMAL
-    from ic_gvins_tpu_torch.tools import run_kaist
-    from ic_gvins_tpu_torch.vision import klt_cuda
 
     s = scenario(dict(np.load(ESTIMATOR_FIXTURE)), "defaults")
     # the renderer draws a pinhole: no distortion
@@ -1338,23 +1372,9 @@ def phase_pipeline(dev, work):
         f"Up / Average / Paeth: " + " / ".join(
             f"{x:.1f}" for x in png_filter_ms(img, os.path.join(work, "filters.png"))) + " ms")
 
-    klt_cuda.lk_track_bidirectional.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    printed = io.StringIO()
-    with watch_pipeline() as seen, redirect_stdout(printed):
-        res = run_kaist.main(["--data", root, "--config", cfg_path, "--out", out,
-                              "--ref", truth_path, "--gps-default-std", "0.05",
-                              "--bayer", "none", "--device", str(dev)])
-    log("phase 6 run_kaist printed: " + printed.getvalue().strip())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = klt_cuda.lk_track_bidirectional.launches
-    pipe, tracked = seen["pipe"], seen["tracked"]
+    seq = (root, cfg_path, truth_path, truth_t, truth_p)
+    res, pipe, tracked, launches, wall, t, err = replay_kaist(dev, seq, out, "phase 6")
     est = pipe.est
-    for name in ("gvins.nav", "trajectory.csv", "statistics.txt", "tracking.txt"):
-        check(os.path.getsize(os.path.join(out, name)) > 0, f"the replay wrote no {name}")
-    t, err = replay_errors(out, truth_t, truth_p)
     ate = rms(err[t >= T_BASE + PIPELINE_T_MIN])
     ate_run = rms(err[t >= t[0] + 5.0])
     fm = np.asarray(pipe.frame_ms)
@@ -1380,7 +1400,37 @@ def phase_pipeline(dev, work):
     check(ate < PIPELINE_ATE, f"pipeline ATE {ate:.3f} m >= {PIPELINE_ATE}")
     check(abs(res["ate_rmse_m"] - ate_run) <= 1e-4, "the command's ATE disagrees with its "
           "trajectory.csv")
-    return launches
+    return launches, seq, stage_line(est, wall, float(s["imu_t"][-1]))
+
+
+def replay_kaist(dev, seq, out, label, extra=()):
+    """``run_kaist.main`` on the KAIST-layout sequence ``seq`` (the paths and
+    truth ``write_kaist_dir`` returns) with ``extra`` flags, the KLT's
+    launch count set to 0 just before and read just after: (the command's
+    result, its pipeline, tracked frames, KLT launches, wall s, stamps and
+    errors of its trajectory.csv). Checks that it wrote its output files."""
+    import torch
+
+    from ic_gvins_tpu_torch.tools import run_kaist
+    from ic_gvins_tpu_torch.vision import klt_cuda
+
+    root, cfg_path, truth_path, truth_t, truth_p = seq
+    klt_cuda.lk_track_bidirectional.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with watch_pipeline() as seen, redirect_stdout(printed):
+        res = run_kaist.main(["--data", root, "--config", cfg_path, "--out", out,
+                              "--ref", truth_path, "--gps-default-std", "0.05",
+                              "--bayer", "none", "--device", str(dev), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = klt_cuda.lk_track_bidirectional.launches
+    log(f"{label} run_kaist printed: " + printed.getvalue().strip())
+    for name in ("gvins.nav", "trajectory.csv", "statistics.txt", "tracking.txt"):
+        check(os.path.getsize(os.path.join(out, name)) > 0, f"the replay wrote no {name}")
+    t, err = replay_errors(out, truth_t, truth_p)
+    return res, seen["pipe"], seen["tracked"], launches, wall, t, err
 
 
 def phase_odometer(dev, work):
@@ -1666,6 +1716,236 @@ def phase_urban(dev, work):
     return launches, klt_urban(pipe, sensors, dev)
 
 
+def f32_fixture():
+    return dict(np.load(F32_FIXTURE))
+
+
+def phase_f32_modules(dev):
+    """Phase 10 (a): the float32 reduced solve (Newton-Schulz) and the
+    float32 marginalization on the card against JAX float32; then phase
+    4's round in float32 beside the same round in float64: stage ms and
+    launches."""
+    import torch
+
+    from ic_gvins_tpu_torch.convert import cast, to_torch, unflatten
+    from ic_gvins_tpu_torch.data.types import IntegrationParams
+    from ic_gvins_tpu_torch.factors.marginalization import marginalize_node0
+    from ic_gvins_tpu_torch.solver.assembly import solve_reduced
+    from ic_gvins_tpu_torch.solver.window import Prior, SolverConfig, Window
+
+    fx = f32_fixture()
+    parts = []
+    for case in ("round", "spd"):
+        H, g, y64 = (fx[f"solve64/{case}_{k}"] for k in ("H", "g", "y"))
+        y = solve_reduced(torch.as_tensor(H, dtype=torch.float32, device=dev),
+                          torch.as_tensor(g, dtype=torch.float32, device=dev))
+        check(y.dtype == torch.float32, "the float32 solve came back in another dtype")
+        e_jax, e64 = rel_err(fx[f"solve32/{case}_y"], y.cpu()), rel_err(y64, y.cpu())
+        e64_jax = rel_err(y64, fx[f"solve32/{case}_y"])
+        parts.append(f"{case}: {e_jax:.3g} from JAX float32 (<= {F32_SOLVE_VS_JAX[case]}), "
+                     f"{e64:.3g} from float64 (JAX float32 {e64_jax:.3g}; <= "
+                     f"{F32_SOLVE_VS_F64[case]})")
+        check(e_jax <= F32_SOLVE_VS_JAX[case] and e64 <= F32_SOLVE_VS_F64[case],
+              f"the float32 reduced solve ({case}) is off its bounds")
+    r = unflatten(fx, "round32/")
+    win, prior = to_torch(Window, r["window"], dev), to_torch(Prior, r["prior"], dev)
+    cfg, params = to_torch(SolverConfig, r["cfg"], dev), to_torch(IntegrationParams,
+                                                                  r["params"], dev)
+    out = marginalize_node0(win, prior, cfg, params)
+    check(out.H.dtype == torch.float32, "the float32 prior came back in another dtype")
+    H = out.H.double().cpu().numpy()
+    fro = float(np.linalg.norm(H - r["marg_H"]) / np.linalg.norm(r["marg_H"]))
+    w = np.linalg.eigvalsh(H)
+    log(f"phase 10 (a) float32 reduced solve on the card, " + "; ".join(parts))
+    log(f"phase 10 (a) float32 marginalize_node0 on the card: H {fro:.3g} from JAX float32 "
+        f"(relative Frobenius, <= {F32_PRIOR_FRO}), g zero {not bool(out.g.any())}, eigenvalues "
+        f"{w[0]:.3g} .. {w[-1]:.3g} ({w[0] / w[-1]:.3g} >= {F32_PRIOR_EIG_FLOOR})")
+    check(fro <= F32_PRIOR_FRO and not bool(out.g.any())
+          and w[0] >= F32_PRIOR_EIG_FLOOR * w[-1], "the float32 marginalization is off JAX's")
+
+    inputs, ref = round_inputs(dev)
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        args = [cast(x, dtype) for x in inputs]
+        round_once(*args)  # warms the solver libraries
+        (_, _, _, w_opt, (s1, s2, nc), w_sl, pr), ms = round_once(*args)
+        _, launches, dev_ms, wall, busy = profiled(lambda: round_once(*args))
+        check(w_opt.nodes.p.dtype == pr.H.dtype == dtype, "the round changed its dtype")
+        check(all(bool(torch.isfinite(x).all()) for x in (w_opt.nodes.p, pr.H)),
+              "the round is not finite")
+        dp = float(np.abs(w_opt.nodes.p.double().cpu().numpy() - ref["opt"]["nodes"]["p"]).max())
+        rows[dtype] = (ms, launches, busy, dp, (s1.iters_run, s2.iters_run), int(nc))
+    for dtype, (ms, launches, busy, dp, iters, nc) in rows.items():
+        log(f"phase 10 (a) round in {str(dtype)[6:]} (24 x 192, {ITERS} iters): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ms.items()) + f" ms, round {sum(ms.values()):.2f} ms; "
+            f"{launches} launches, busy {busy:.4f} (profiled); LM iterations {iters}, culled "
+            f"{nc}; positions {dp:.3g} m from JAX float64's optimum")
+    check(rows[torch.float32][3] <= F32_ROUND_POS_ATOL,
+          f"the float32 round's optimum is more than {F32_ROUND_POS_ATOL} m from JAX's")
+
+
+def phase_estimator_f32(dev, phase5):
+    """Phase 10 (b): ``Estimator(EngineConfig(), dtype=torch.float32)`` on
+    phase 5's streams against the JAX float32 run of them and the JAX
+    float64 run; stage medians beside phase 5's."""
+    import torch
+
+    fx = f32_fixture()
+    s, _, line5 = phase5
+    ref = {k[len("defaults32/"):]: v for k, v in fx.items() if k.startswith("defaults32/")}
+    ref64 = {k[4:]: v for k, v in scenario(dict(np.load(ESTIMATOR_FIXTURE)),
+                                           "defaults_native").items() if k.startswith("out/")}
+    (est, got), wall_ms = timed(lambda: run_estimator(s, dev, dtype=torch.float32))
+    check(est.window.nodes.p.dtype == est.prior.H.dtype == torch.float32,
+          "the float32 Estimator came back in another dtype")
+    check(np.isfinite(got["traj_p"]).all(), "the float32 Estimator's trajectory is not finite")
+    part = first_parting(got, ref)
+    # the entries at JAX float32's node times (the same times unless a
+    # keyframe decision parts)
+    _, ig, ir = np.intersect1d(got["traj_t"], ref["traj_t"], return_indices=True)
+    n, n_ref = len(ig), len(ref["traj_t"])
+    dist = float(np.max(np.linalg.norm(got["traj_p"][ig] - ref["traj_p"][ir], axis=1)))
+    e = trajectory_errors(got["traj_t"], got["traj_p"], s, 5.0, atol_t=F32_TIME_ATOL)
+    ate = rms(e)
+    log(f"phase 10 (b) Estimator(EngineConfig(), dtype=float32): {len(got['stats'])} rounds "
+        f"(JAX float32 {len(ref['stats'])}, float64 {len(ref64['stats'])}), events "
+        f"{'as JAX float32' if part is None else f'part from JAX float32 at event {part}'}, "
+        f"n_recenters {est.n_recenters} (JAX float32 {int(ref['n_recenters'])}), final state "
+        f"{est.state}; trajectory {dist:.3g} m from JAX float32 at the {n} of its {n_ref} "
+        f"node times it shares (<= {F32_TRAJ_VS_JAX32}); ATE "
+        f"{ate:.4f} m (JAX float32 {float(ref['ate_rmse']):.4f}, float64 "
+        f"{float(ref64['ate_rmse']):.4f}; <= JAX float32 + {F32_ATE_MARGIN})")
+    log("phase 10 (b) float32 " + stage_line(est, wall_ms / 1e3, float(s["imu_t"][-1])))
+    log("phase 10 (b) beside phase 5, float64: " + line5)
+    check(est.n_recenters >= 1, "the float32 Estimator never re-centered")
+    check(n >= 0.9 * n_ref and dist <= F32_TRAJ_VS_JAX32,
+          "the float32 Estimator's trajectory is off JAX float32's")
+    check(ate <= float(ref["ate_rmse"]) + F32_ATE_MARGIN, "the float32 Estimator's ATE")
+
+
+def phase_kaist_f32(dev, work, seq, line6):
+    """Phase 10 (c): ``run_kaist --f32`` on phase 6's KAIST-layout
+    directory: TRACKING_NORMAL, one KLT launch per tracked frame, phase
+    6's ATE bound, the output files. Returns its KLT launches."""
+    from ic_gvins_tpu_torch.engine.estimator import TRACKING_NORMAL
+
+    out = os.path.join(work, "run_f32")
+    res, pipe, tracked, launches, wall, t, err = replay_kaist(dev, seq, out, "phase 10 (c)",
+                                                              ["--f32"])
+    est = pipe.est
+    ate = rms(err[t >= T_BASE + PIPELINE_T_MIN])
+    ate_run = rms(err[t >= t[0] + 5.0])
+    data_s = float(seq[3][-1] - seq[3][0]) - 1.0  # the truth runs 1 s past the data
+    log(f"phase 10 (c) run_kaist --f32 ({res['frames']} frames): dtype {res['dtype']}, final "
+        f"state {est.state}, {len(est.stats)} rounds, n_recenters {res['n_recenters']}; KLT "
+        f"launches {launches} for {tracked} tracked frames; ATE after {PIPELINE_T_MIN:.0f} s "
+        f"{ate:.4f} m (< {PIPELINE_ATE}), the command's {res['ate_rmse_m']}; "
+        + stage_line(est, wall, data_s))
+    log("phase 10 (c) beside phase 6, float64: " + line6)
+    check(res["dtype"] == "float32", "run_kaist --f32 did not run in float32")
+    check(est.state == TRACKING_NORMAL, "run_kaist --f32 did not reach TRACKING_NORMAL")
+    check(tracked > 0 and launches == tracked, "run_kaist --f32 did not launch the KLT kernel "
+          "once per tracked frame")
+    check(ate < PIPELINE_ATE, f"run_kaist --f32 ATE {ate:.3f} m >= {PIPELINE_ATE}")
+    check(abs(res["ate_rmse_m"] - ate_run) <= 1e-4, "the command's ATE disagrees with its "
+          "trajectory.csv")
+    return launches
+
+
+def phase_urban_f32(dev, work):
+    """Phase 10 (d): ``run_urban --f32`` on the JAX runner's 90 s drive
+    (phase 8 (d)'s file and flags): no NaN, re-centered, a PSD prior, one
+    KLT launch per tracked frame; its ATE beside the JAX float64 and
+    float32 replays of the file (the JAX float32 one diverges on this
+    route, so no ATE bound is set). Returns its KLT launches."""
+    import torch
+
+    from ic_gvins_tpu_torch.tools import run_urban
+    from ic_gvins_tpu_torch.vision import klt_cuda
+
+    out = os.path.join(work, "urban_f32")
+    os.makedirs(out)
+    sensors = os.path.join(out, "sensors.npz")
+    with np.load(URBAN_FIXTURE) as z:
+        ate64 = float(z["jax/ate_rmse_m"])
+        np.savez(sensors, **{k: z[k] for k in z.files if not k.startswith("jax/")})
+    fx = f32_fixture()
+    j32 = {k[len("urban32/"):]: v for k, v in fx.items() if k.startswith("urban32/")}
+    argv = ["--f32", "--duration", str(URBAN_S), "--outages", *map(str, URBAN_OUTAGE),
+            "--checkpoint-every", str(URBAN_CKPT), "--sensors", sensors, "--out", out,
+            "--device", str(dev)]
+    klt_cuda.lk_track_bidirectional.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with watch_pipeline() as seen, redirect_stdout(printed):
+        res = run_urban.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = klt_cuda.lk_track_bidirectional.launches
+    pipe, tracked = seen["pipe"], seen["tracked"]
+    est = pipe.est
+    for line in printed.getvalue().splitlines():
+        if line.startswith('{"sim_t"'):
+            log("phase 10 (d) run_urban --f32 progress: " + line)
+    with np.load(os.path.join(out, "trajectory.npz")) as z:
+        parting = parting_line(z["est_t"], z["est_p"], j32["est_t"], j32["est_p"])
+        finite = bool(np.isfinite(z["est_p"]).all())
+    log(f"phase 10 (d) run_urban --f32 {URBAN_S:.0f} s: mode {res['mode']}, final state "
+        f"{est.state}, {len(est.stats)} rounds, n_recenters {res['n_recenters']} (JAX float32 "
+        f"{int(j32['n_recenters'])}), prior eig min {res['prior_eig_min']:.3g} rank "
+        f"{res['prior_rank']}; KLT launches {launches} for {tracked} tracked frames; ATE rmse "
+        f"{res['ate_rmse_m']:.4f} m, max {res['ate_max_m']:.4f} m (JAX float64 {ate64:.4f}, "
+        f"JAX float32 {float(j32['ate_rmse_m']):.4f} rmse / {float(j32['ate_max_m']):.4f} max "
+        f"over its {float(j32['duration']):.0f} s); " + stage_line(est, wall, URBAN_S))
+    log("phase 10 (d) against the JAX float32 replay: " + parting)
+    check(res["mode"] == "f32" and est.window.nodes.p.dtype == torch.float32,
+          "run_urban --f32 did not run in float32")
+    check(finite and res["ate_rmse_m"] is not None and np.isfinite(res["ate_rmse_m"]),
+          "run_urban --f32 produced a non-finite trajectory")
+    check(res["n_recenters"] >= 1, "run_urban --f32 never re-centered")
+    check(res["prior_eig_min"] >= 0.0, "run_urban --f32 left an indefinite prior")
+    check(tracked > 0 and launches == tracked, "run_urban --f32 did not launch the KLT kernel "
+          "once per tracked frame")
+    return launches
+
+
+def phase_batch_f32(dev, wins, prior, cfg, params, f64):
+    """Phase 10 (e): ``optimize_batch`` of phase 9's 32 windows in float32
+    against each window's float32 ``optimize``; ms, launches and busy share
+    beside phase 9 (a)'s float64 call (``f64``)."""
+    import torch
+
+    from ic_gvins_tpu_torch.convert import cast
+    from ic_gvins_tpu_torch.parallel import multi_seq
+    from ic_gvins_tpu_torch.solver.lm import optimize
+
+    f = lambda x: cast(x, torch.float32)  # noqa: E731
+    wins, prior, cfg, params = [f(w) for w in wins], f(prior), f(cfg), f(params)
+    windows = multi_seq.stack_windows(wins)
+    priors = multi_seq.stack_priors([prior] * BATCH)
+    batched = lambda: multi_seq.optimize_batch(windows, priors, cfg, params, iters=ITERS)  # noqa: E731
+    batched()  # warm-up
+    (out, (c0, c1, ncull, iters, acc)), ms_b = timed(batched)
+    _, n_b, dev_b, wall_b, busy_b = profiled(batched)
+    ref, ms_s = timed(lambda: [optimize(w, prior, cfg, params, iters=ITERS) for w in wins])
+    check(out.nodes.p.dtype == torch.float32, "the float32 batch came back in another dtype")
+    worst, same = 0.0, 0
+    for b, (w, (s1, s2, nc)) in enumerate(ref):
+        check(int(ncull[b]) == int(nc), f"batch member {b}: culls differ from its own round")
+        same += (int(iters[b]), int(acc[b])) == (s1.iters_run + s2.iters_run,
+                                                 s1.accepted + s2.accepted)
+        worst = max(worst, float((out.nodes.p[b] - w.nodes.p).abs().max()))
+    log(f"phase 10 (e) optimize_batch of {BATCH} float32 windows: culls as each one's own "
+        f"float32 round, iterations and accepted steps as it in {same} of {BATCH}, positions "
+        f"{worst:.3g} m from it (<= {F32_BATCH_POS_ATOL}); batched call {ms_b:.2f} ms, "
+        f"{BATCH} single float32 rounds {ms_s:.2f} ms; launches {n_b}, busy share "
+        f"{busy_b:.4f} ({dev_b:.2f} ms of device time in {wall_b:.2f} ms profiled); phase 9 "
+        f"(a), float64: {f64['ms']:.2f} ms, {f64['launches']} launches, busy {f64['busy']:.4f}, "
+        f"{BATCH} single rounds {f64['single_ms']:.2f} ms")
+    check(worst <= F32_BATCH_POS_ATOL, "float32 batch members are off their own rounds")
+
+
 def main():
     import torch
 
@@ -1674,7 +1954,7 @@ def main():
         return 1
     if not os.path.isdir(os.path.join(ROOT, "ic_gvins_tpu_torch")) or not all(
             os.path.exists(f) for f in (FIXTURE, ESTIMATOR_FIXTURE, ODO_FIXTURE, SIM_FIXTURE,
-                                        URBAN_FIXTURE, PARALLEL_FIXTURE)):
+                                        URBAN_FIXTURE, PARALLEL_FIXTURE, F32_FIXTURE)):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
@@ -1699,30 +1979,46 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        launches_pipeline = phase_pipeline(dev, work)
+        launches_pipeline, seq, line6 = phase_pipeline(dev, work)
         phase_odometer(dev, work)
         phase_simulator(dev)
         phase_generate(dev, work)
         phase_run_sim(dev, work)
         launches_urban, (err_u, ms_u, plain_u, bound_u, by_u) = phase_urban(dev, work)
+        # phase 9: the parallel/ package on the card
+        klt_cuda.lk_track_bidirectional.launches = 0
+        t9 = time.perf_counter()
+        wins, prior, cfg, params, fx, batch64 = phase_batch(dev)
+        phase_sharded(dev, wins, prior, cfg, params, phase5)
+        phase_ba_nodes(dev, fx)
+        check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 9 launched the KLT kernel")
+        log(f"phase 9 wall: {time.perf_counter() - t9:.1f} s")
+        # phase 10: the float32 engine mode; (c) and (d) zero and read the
+        # KLT's count around their commands
+        t10 = time.perf_counter()
+        klt_cuda.lk_track_bidirectional.launches = 0
+        phase_f32_modules(dev)
+        phase_estimator_f32(dev, phase5)
+        check(klt_cuda.lk_track_bidirectional.launches == 0,
+              "phase 10 (a)-(b) launched the KLT kernel")
+        launches_kaist32 = phase_kaist_f32(dev, work, seq, line6)
+        launches_urban32 = phase_urban_f32(dev, work)
+        klt_cuda.lk_track_bidirectional.launches = 0
+        phase_batch_f32(dev, wins, prior, cfg, params, batch64)
+        check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 10 (e) launched the KLT kernel")
+        log(f"phase 10 wall: {time.perf_counter() - t10:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # phase 9: the parallel/ package on the card
-    klt_cuda.lk_track_bidirectional.launches = 0
-    t9 = time.perf_counter()
-    wins, prior, cfg, params, fx = phase_batch(dev)
-    phase_sharded(dev, wins, prior, cfg, params, phase5)
-    phase_ba_nodes(dev, fx)
-    check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 9 launched the KLT kernel")
-    log(f"phase 9 wall: {time.perf_counter() - t9:.1f} s")
     log(f"phase 8 klt at the urban replay's shape (320x240, 120 feature slots, 4 images): "
         f"kernel {ms_u:.4f} ms on the card, plain {plain_u:.4f} ms, bound {bound_u:.5f} ms "
         f"({by_u}), max |kernel - plain| {err_u:.3g} px")
     klt_stats.update(ms_urban=ms_u, plain_ms_urban=plain_u, bound_ms_urban=bound_u,
                      max_abs_err=max(klt_stats["max_abs_err"], err_u))
-    launches = launches_frontend + launches_pipeline + launches_urban
+    launches = (launches_frontend + launches_pipeline + launches_urban + launches_kaist32
+                + launches_urban32)
     log(f"klt launches: frontend {launches_frontend}, replay {launches_pipeline}, "
-        f"urban replay {launches_urban}")
+        f"urban replay {launches_urban}, float32 replay {launches_kaist32}, float32 urban "
+        f"replay {launches_urban32}")
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s, the build included")
 
     print(json.dumps({"kernels": [{

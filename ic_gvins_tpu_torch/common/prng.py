@@ -7,7 +7,8 @@ culls the same tracks: the threefry-2x32 hash (20 rounds, key schedule
 with the 0x1BD11BDA parity word), keys as two uint32 words, random bits by
 the partitionable scheme (the hash of a 64-bit counter split in two
 words, one output word each), and floats from the top mantissa bits with
-the exponent of 1.0, minus one.
+the exponent of 1.0, minus one. With x64 off JAX draws float32 uniforms
+from one 32-bit word per element (the two output words xor-ed).
 """
 
 import numpy as np
@@ -50,29 +51,46 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.concatenate([y0, y1])
 
 
-def random_bits64(key, shape) -> np.ndarray:
-    """``threefry_random_bits(key, 64, shape)``: word pairs from the
-    hash of the element's flat index."""
+def _hash_index(key, shape):
+    """The two hash words of every element's flat index (a 64-bit counter
+    split in two words), the partitionable scheme's random bits."""
     n = int(np.prod(shape, dtype=np.int64))
     idx = np.arange(n, dtype=np.uint64)
     hi = (idx >> np.uint64(32)).astype(np.uint32)
     lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     with np.errstate(over="ignore"):
-        b1, b2 = threefry_2x32(key[0], key[1], hi, lo)
-    bits = (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
-    return bits.reshape(shape)
+        return threefry_2x32(key[0], key[1], hi, lo)
 
 
-def uniform(key, shape) -> np.ndarray:
-    """``jax.random.uniform(key, shape)`` in float64 (JAX with x64 on):
-    [0, 1)."""
+def random_bits64(key, shape) -> np.ndarray:
+    """``threefry_random_bits(key, 64, shape)``: the element's two hash
+    words as one."""
+    b1, b2 = _hash_index(key, shape)
+    return ((b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)).reshape(shape)
+
+
+def random_bits32(key, shape) -> np.ndarray:
+    """``threefry_random_bits(key, 32, shape)``: the xor of the element's
+    two hash words."""
+    b1, b2 = _hash_index(key, shape)
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform(key, shape, dtype=np.float64) -> np.ndarray:
+    """``jax.random.uniform(key, shape)`` in [0, 1): float64 as JAX draws
+    it with x64 on, float32 as with x64 off."""
+    if np.dtype(dtype) == np.float32:
+        bits = random_bits32(key, tuple(shape))
+        one = np.array(1.0, np.float32).view(np.uint32)
+        floats = ((bits >> np.uint32(9)) | one).view(np.float32) - np.float32(1.0)
+        return np.maximum(floats, np.float32(0.0))
     bits = random_bits64(key, tuple(shape))
     one = np.array(1.0, np.float64).view(np.uint64)
     floats = ((bits >> np.uint64(12)) | one).view(np.float64) - 1.0
     return np.maximum(floats, 0.0)
 
 
-def ransac_uniforms(frame_idx: int, shape=(128, 8)) -> np.ndarray:
+def ransac_uniforms(frame_idx: int, shape=(128, 8), dtype=np.float64) -> np.ndarray:
     """The uniforms of the FM-RANSAC draws of frame ``frame_idx``:
-    ``uniform(fold_in(PRNGKey(0), frame_idx), shape)``."""
-    return uniform(fold_in(prng_key(0), frame_idx), shape)
+    ``uniform(fold_in(PRNGKey(0), frame_idx), shape)`` in ``dtype``."""
+    return uniform(fold_in(prng_key(0), frame_idx), shape, dtype)

@@ -8,6 +8,10 @@ NamedTuple of numpy arrays with the same field names, nested the same way;
 arrays. Nothing here imports jax: a JAX state goes through ``to_numpy``
 (which only calls ``np.asarray`` on its leaves) or the caller's own
 ``{k: np.asarray(v) for k, v in win._asdict().items()}``.
+
+Both keep the arrays' dtypes: a JAX float32 state (x64 off) becomes port
+float32 tensors, not widened. ``cast(tree, dtype)`` changes the floating
+leaves of a port state, for the engine's float32 mode.
 """
 
 import numpy as np
@@ -54,6 +58,16 @@ def to_torch(cls, tree, device=None):
     if extra:
         raise ValueError(f"{cls.__name__} has no fields {sorted(extra)}")
     return cls(**kw)
+
+
+def cast(tree, dtype):
+    """A NamedTuple of the port (nested) with its floating tensors in
+    ``dtype``; integer and bool tensors, ints and ``None`` unchanged."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(cast(v, dtype) for v in tree))
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
 
 
 def to_numpy(tree):

@@ -5,8 +5,9 @@ nothing of it.
 Every key of ``config/gvins.yaml`` has an equivalent here, plus the
 hard-coded constants the survey flagged as "really config"
 (``ic_gvins.h:120-141``, ``tracking.h:112-115``, ``misc.h:72-76``,
-``mappoint.h:51-53``). The port's ``Estimator`` refuses the option it
-has not ported (``recenter_threshold > 0``). ``use_native_imu_buffer``
+``mappoint.h:51-53``). The engine's numeric type is not a field: it is
+the ``dtype`` argument of ``Estimator`` and ``Pipeline``, and
+``recenter_threshold`` follows it unless set. ``use_native_imu_buffer``
 picks the C++ IMU buffer of the port's native library (the default, as in
 the JAX package) or the Python one.
 """
@@ -165,13 +166,14 @@ class EngineConfig:
     anchor_pose_std: tuple = (0.05, 0.05, 0.05, 0.3 * D2R, 0.3 * D2R, 1.0 * D2R)
     anchor_mix_std: tuple = (0.05, 0.05, 0.05, 3e-4, 3e-4, 3e-4, 3e-3, 3e-3, 3e-3)
     track_ref_lat_deg: float = 30.5  # latitude for iewn if no GNSS origin yet
-    # Window re-centering for the f32 TPU path: when |p| of the oldest node
-    # exceeds this after a slide, shift the whole window (nodes, GNSS,
+    # Window re-centering for the float32 engine: when |p| of the oldest
+    # node exceeds this after a slide, shift the whole window (nodes, GNSS,
     # preintegration position caches, prior linearization points) so the
-    # oldest node is near the origin, accumulating the offset in f64 on the
-    # host. All factor residuals depend only on position *differences*
+    # oldest node is at the origin, accumulating the offset in float64 on
+    # the host. All factor residuals depend only on position differences
     # (incl. the Earth Coriolis term via sum_dt_pn - dt*p0), so the shift is
-    # algebraically exact. 0 disables; None = auto (on when x64 is off).
+    # algebraically exact. 0 disables; None = auto: 20 m in float32, off in
+    # float64 (the estimator's dtype).
     recenter_threshold: float | None = None
 
     @property

@@ -27,9 +27,16 @@ scale. ``save_checkpoint`` / ``load_checkpoint`` use the JAX package's
 pickle layout, so either package resumes the other's checkpoints.
 
 ``set_mesh`` runs the rounds landmark-sharded
-(``parallel/lm_sharded.py``). Not ported, and refused where asked for:
-window re-centering (``recenter_threshold > 0``; the port runs in
-float64, where the JAX package turns it off; ``n_recenters`` stays 0).
+(``parallel/lm_sharded.py``).
+
+``dtype`` (float64 by default, or float32) is the type of every device
+tensor: the window, the prior, the integration parameters, the solver
+configuration and the preintegration, as the JAX package's arrays are
+with x64 on or off. The host bookkeeping (IMU buffer, ``origin``, slot
+maps, trajectory) stays float64 numpy. In float32 the window is
+re-centered (``recenter_threshold``, on by default there): once the
+oldest node lies farther than the threshold from the local origin, every
+absolute position shifts by it and ``origin`` takes it up.
 ``cfg.use_native_imu_buffer`` picks the C++ IMU buffer of the port's
 native library (the default) or the Python one, as in the JAX package; a
 C++ buffer that cannot be built raises.
@@ -109,7 +116,7 @@ def _leaves(tree) -> list:
 def _unflatten(template, leaves, device):
     """``template``'s structure (tensors) filled with ``leaves`` (numpy
     arrays in ``_leaves`` order, of the template's shapes) as tensors on
-    ``device``."""
+    ``device``, each in the type of the template's tensor."""
     shapes = [tuple(x.shape) for x in _leaves(template)]
     if [np.shape(x) for x in leaves] != shapes:
         raise ValueError("the checkpoint's window layout is not this configuration's "
@@ -119,7 +126,8 @@ def _unflatten(template, leaves, device):
     def build(t):
         if isinstance(t, tuple):
             return type(t)(*(build(v) for v in t))
-        return None if t is None else torch.as_tensor(np.asarray(next(it)), device=device)
+        return None if t is None else torch.as_tensor(np.asarray(next(it)), dtype=t.dtype,
+                                                      device=device)
 
     return build(template)
 
@@ -316,25 +324,24 @@ def _make_imu_buffer(cfg: EngineConfig):
 class Estimator:
     """INS-centric GNSS(+Visual) fusion engine."""
 
-    def __init__(self, cfg: EngineConfig, device=None):
-        if cfg.recenter_threshold is not None and cfg.recenter_threshold > 0:
-            raise NotImplementedError("window re-centering (recenter_threshold > 0) "
-                                      "is not ported; the port runs in float64")
+    def __init__(self, cfg: EngineConfig, device=None, dtype=torch.float64):
+        if dtype not in (torch.float64, torch.float32):
+            raise TypeError(f"the engine runs in float64 or float32, not {dtype}")
         self.cfg = cfg
         self.device = dev = resolve_device(device)
+        self.dtype = dtype
         self._np_cache: dict = {}
-        f64 = dict(dtype=torch.float64, device=dev)
-        t = lambda x: torch.tensor(x, **f64)  # noqa: E731
+        kw = dict(dtype=dtype, device=dev)
+        t = lambda x: torch.tensor(x, **kw)  # noqa: E731
         m = cfg.imumodel
         self.params = IntegrationParams(
             gyr_arw=t(m.arw * D2R / 60.0), acc_vrw=t(m.vrw / 60.0),
             gyr_bias_std=t(m.gbstd * D2R / 3600.0), acc_bias_std=t(m.abstd * 1e-5),
             corr_time=t(m.corrtime * 3600.0),
             gravity=t([0.0, 0.0, cfg.gravity]),
-            iewn=torch.zeros(3, **f64),  # set at initialization from latitude
+            iewn=torch.zeros(3, **kw),  # set at initialization from latitude
         )
-        self._gravity = np.array([0.0, 0.0, cfg.gravity])  # host mirrors of params
-        self._iewn = np.zeros(3)
+        self._set_params()  # host mirrors of gravity and iewn
         self._focal = 0.5 * (cfg.cam.intrinsic[0] + cfg.cam.intrinsic[1])
         self._reproj_std = cfg.reprojection_error_std / self._focal  # normalized units
         flag = lambda b: torch.tensor(bool(b), device=dev)  # noqa: E731
@@ -367,7 +374,7 @@ class Estimator:
         # coverage wait here and are replayed by add_imu, in time order
         self.pending_events: list[tuple] = []
         self.imu_repaired = 0  # IMU samples synthesized into rate gaps
-        self.n_recenters = 0  # window shifts: always 0 (re-centering is not ported)
+        self.n_recenters = 0  # window shifts (_maybe_recenter)
         self.mesh = None  # set_mesh: rounds landmark-sharded over this mesh
         self.dropped_gnss = 0  # fixes lost despite the capacity slide
         # geodetic anchor of the local frame (lat rad, lon rad, h m); when
@@ -375,12 +382,12 @@ class Estimator:
         self.origin_blh: np.ndarray | None = None
 
         q_bc = np.asarray(cfg.cam.q_b_c, np.float64)
-        self.window = empty_window(cfg.max_nodes, cfg.max_landmarks, device=dev,
+        self.window = empty_window(cfg.max_nodes, cfg.max_landmarks, dtype, device=dev,
                                    odo=self.use_odo)._replace(
             ext_p=t(cfg.cam.t_b_c), ext_q=t(q_bc / np.linalg.norm(q_bc)),
             td=t(cfg.cam.td_b_c),
         )
-        self.prior = empty_prior(cfg.max_nodes, device=dev)
+        self.prior = empty_prior(cfg.max_nodes, dtype, device=dev)
         self.n_nodes = 0  # host count of valid nodes
         self.node_times: list[float] = []
         self.node_is_kf: list[bool] = []
@@ -403,7 +410,8 @@ class Estimator:
         self._last_parallax = 0.0
         # world positions of landmarks fixed at marginalization
         self.fixed_mappoints: list[np.ndarray] = []
-        # the local frame's offset; stays zero (re-centering is not ported)
+        # the local frame's offset: window positions are kept near zero by
+        # re-centering so that float32 keeps its precision; outputs add it
         self.origin = np.zeros(3, np.float64)
         self._mech_cache = (None, None, None)  # (t, state obj, result)
         self._np_state_cache = (None, None)
@@ -421,13 +429,21 @@ class Estimator:
         # host clock: "preintegrate", "optimize", "marginalize"
         self.stage_ms: dict[str, list[float]] = {
             "preintegrate": [], "optimize": [], "marginalize": []}
+        # None: on (20 m) in float32, off in float64, as the JAX package
+        # picks it by its x64 switch
+        thr = cfg.recenter_threshold
+        if thr is None:
+            thr = 0.0 if dtype == torch.float64 else 20.0
+        self.recenter_threshold = float(thr)
 
     # ------------------------------------------------------------------
     # device helpers
     # ------------------------------------------------------------------
 
-    def _dev(self, x, dtype=torch.float64):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+    def _dev(self, x, dtype=None):
+        """A host value as a device tensor, in the engine's dtype unless
+        ``dtype`` names another."""
+        return torch.as_tensor(np.asarray(x), dtype=dtype or self.dtype, device=self.device)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -566,7 +582,8 @@ class Estimator:
 
     def load_checkpoint(self, path: str):
         """Resume from a checkpoint of either package; the configuration
-        (window sizes, odometer) must be the one it was saved with."""
+        (window sizes, odometer) must be the one it was saved with. The
+        state takes the estimator's dtype, whichever it was saved in."""
         with open(path, "rb") as f:
             state = pickle.load(f)
         dev = self.device
@@ -598,6 +615,7 @@ class Estimator:
         self.imu_repaired = state.get("imu_repaired", 0)
         self.dropped_gnss = state.get("dropped_gnss", 0)
         self.origin_blh = state.get("origin_blh")
+        self.n_recenters = state.get("n_recenters", 0)
         self._gins_chi2 = list(state.get("gins_chi2", []))
         self._align_bg = state.get("align_bg")
         self._align_rollpitch = state.get("align_rollpitch")
@@ -661,7 +679,7 @@ class Estimator:
             wie = 7.2921151467e-5
             self._set_params(iewn=self._dev([wie * math.cos(lat), 0.0, -wie * math.sin(lat)]))
         else:
-            self._set_params(iewn=torch.zeros(3, dtype=torch.float64, device=self.device))
+            self._set_params(iewn=self._dev(np.zeros(3)))
 
         # IMU stats between the two fixes
         times, all_dt, all_dth, all_dv = self.imu.arrays()
@@ -717,7 +735,7 @@ class Estimator:
 
         state0 = NavState(time=self._dev(t1), p=self._dev(p_node), q=q,
                           v=self._dev(vel_gnss), bg=self._dev(bg),
-                          ba=torch.zeros(3, dtype=torch.float64, device=self.device))
+                          ba=self._dev(np.zeros(3)))
         self._append_node(state0, is_kf=False)
         self._set_gnss(0, p1, g1std)
 
@@ -1164,7 +1182,8 @@ class Estimator:
         # per-keyframe statistics (statistics.txt columns, ic_gvins.cc:964-1067)
         r_v = eval_reproj_res(self.window, self.solver_cfg)
         m = _host(obs_mask(self.window))
-        px_err = np.linalg.norm(_host(r_v), axis=-1) * self._reproj_std * self._focal
+        px_err = (np.linalg.norm(_host(r_v), axis=-1)
+                  * float(self.solver_cfg.reproj_std) * self._focal)
         errs = px_err[m]
         # extrinsic sanity gate + landmark-level culling (ic_gvins.cc:1260-1270)
         self._extrinsic_gate()
@@ -1349,12 +1368,12 @@ class Estimator:
             # slide only; then re-anchor with bounded information ("anchor")
             # or leave no prior ("none")
             self.window, _ = slide_window(
-                self.window, empty_prior(self.window.n_nodes, device=self.device))
+                self.window, empty_prior(self.window.n_nodes, self.dtype, device=self.device))
             if mode == "anchor":
                 self.prior = make_init_prior(self.window, self._dev(self.cfg.anchor_pose_std),
                                              self._dev(self.cfg.anchor_mix_std))
             else:
-                self.prior = empty_prior(self.window.n_nodes, device=self.device)
+                self.prior = empty_prior(self.window.n_nodes, self.dtype, device=self.device)
         was_kf = self.node_is_kf.pop(0)
         self.node_times.pop(0)
         self.n_nodes -= 1
@@ -1380,6 +1399,7 @@ class Estimator:
         for fid in [f for f, s in self.lm_slot.items()
                     if not lm_valid[s] and obs_valid[s].sum() == 0]:
             self._free_lm_slot(fid)
+        self._maybe_recenter()
         # track the Earth rate with the vehicle: refresh at the window head
         self._refresh_earth_params(self._npw("nodes.p")[0])
         self._sync()
@@ -1411,6 +1431,37 @@ class Estimator:
         self.traj_times.append(float(s.time))
         self.traj_p.append(_host(s.p).astype(np.float64) + self.origin)
         self.traj_q.append(_host(s.q))
+
+    def _maybe_recenter(self):
+        """Shift the window so that the oldest node sits at the origin once
+        it lies ``recenter_threshold`` away (the float32 precision guard).
+        The shift is exact: every residual sees positions only through
+        differences (GNSS p + R l - p_gnss, preintegration p1 - p0 - ...
+        with the Earth term's cache as sum_dt_pn - dt p0, the prior as
+        p - lin_p), so the costs do not change."""
+        if self.recenter_threshold <= 0 or self.n_nodes < 1:
+            return
+        p0 = self._npw("nodes.p")[0].astype(np.float64)
+        if float(np.linalg.norm(p0)) < self.recenter_threshold:
+            return
+        w = self.window
+        sh = self._dev(p0)
+        pre = w.preint._replace(
+            sum_dt_pn=w.preint.sum_dt_pn - w.preint.dt[:, None] * sh,
+            end_state=w.preint.end_state._replace(p=w.preint.end_state.p - sh),
+        )
+        self.window = w._replace(nodes=w.nodes._replace(p=w.nodes.p - sh),
+                                 gnss_p=w.gnss_p - sh, preint=pre)
+        self.prior = self.prior._replace(
+            lin_nodes=self.prior.lin_nodes._replace(p=self.prior.lin_nodes.p - sh))
+        if self.last_node_state is not None:
+            self.last_node_state = self.last_node_state._replace(
+                p=self.last_node_state.p - sh)
+        if self.cur_state is not None:
+            self.cur_state = self.cur_state._replace(p=self.cur_state.p - sh)
+        self.gnss_queue = [(t, p - p0, s) for t, p, s in self.gnss_queue]
+        self.origin += p0
+        self.n_recenters += 1
 
     # ------------------------------------------------------------------
     # queries

@@ -3,9 +3,10 @@ over raw images (``engine/frontend.py``).
 
 Per frame, ``track_frame`` equalizes the image (CLAHE), builds the
 pyramid, predicts the LK seeds (rotation-only from the INS attitude, full
-reprojection for mapped landmarks; float64), runs the bidirectional KLT
-(float32; the Hopper kernel on a CUDA device), normalizes the tracked
-points and culls them by FM-RANSAC on undistorted pixels;
+reprojection for mapped landmarks; in the camera's dtype, the engine's),
+runs the bidirectional KLT (float32; the Hopper kernel on a CUDA device),
+normalizes the tracked points and culls them by FM-RANSAC on undistorted
+pixels (the camera's dtype again);
 ``detect_frame`` replenishes features with grid Shi-Tomasi + subpixel
 refinement. ``Frontend`` keeps the fixed-capacity feature table in numpy
 on the host, as the JAX package does, and the previous pyramid on the
@@ -25,6 +26,8 @@ from ..vision.detector import corner_subpix, detect_features
 from ..vision.preprocess import clahe, histogram_correlation
 from ..vision.pyramid import build_pyramid
 
+_NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
+
 
 def prep_frame(img, levels: int, use_clahe: bool):
     """Preprocess + pyramid (first frame and the frame after a reset)."""
@@ -36,15 +39,16 @@ def track_frame(cam, prev_pyr, img, pts, valid, q_prev_wc, q_wc,
                 use_clahe: bool, fm_ransac: bool, uv_prev, ransac_thr: float,
                 ransac_u):
     """Preprocess -> pyramid -> LK seed prediction -> bidirectional KLT ->
-    normalize -> FM-RANSAC epipolar culling. ``uv_prev`` [F,2] f64 holds
-    the previous normalized observations and ``ransac_u`` [128, 8] f64 the
-    uniforms of the RANSAC draws.
-    Returns (pyr, pts1 [F,2] f32, ok [F], uv1 [F,2] f64)."""
+    normalize -> FM-RANSAC epipolar culling. The geometry runs in the
+    camera's dtype: ``uv_prev`` [F,2] holds the previous normalized
+    observations, and ``ransac_u`` [128, 8] the uniforms of the RANSAC
+    draws. Returns (pyr, pts1 [F,2] f32, ok [F], uv1 [F,2])."""
     pyr = prep_frame(img, levels, use_clahe)
+    dtype = cam.fx.dtype
 
     # rotation-only seed
     q_rel = rot.quat_mul(rot.quat_inv(q_wc), q_prev_wc)
-    pc1 = rot.quat_rotate(q_rel, cam_mod.pixel_to_cam(cam, pts.to(torch.float64)))
+    pc1 = rot.quat_rotate(q_rel, cam_mod.pixel_to_cam(cam, pts.to(dtype)))
     z = pc1[:, 2:]
     z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     pred = cam_mod.cam_to_pixel(cam, pc1 / z).to(torch.float32) if has_rot else pts
@@ -63,7 +67,7 @@ def track_frame(cam, prev_pyr, img, pts, valid, q_prev_wc, q_wc,
     pred = torch.where((lm_ok & inb)[:, None], px_full.to(torch.float32), pred)
 
     pts1, ok, _ = klt_cuda.lk_track_bidirectional(prev_pyr, pyr, pts, pred, valid)
-    uv1 = cam_mod.pixel_to_cam(cam, pts1.to(torch.float64))[:, :2]
+    uv1 = cam_mod.pixel_to_cam(cam, pts1.to(dtype))[:, :2]
     ok = ok & valid
 
     if fm_ransac:
@@ -79,12 +83,13 @@ def track_frame(cam, prev_pyr, img, pts, valid, q_prev_wc, q_wc,
 
 def detect_frame(cam, img0, pts, valid, cell: int, max_new: int, subpix: bool):
     """Grid Shi-Tomasi + subpixel refinement + normalize.
-    Returns (pts_new [max_new,2] f32, ok_new, uv_new [max_new,2] f64)."""
+    Returns (pts_new [max_new,2] f32, ok_new, uv_new [max_new,2] in the
+    camera's dtype)."""
     pts_new, _, ok_new = detect_features(img0, pts, valid, cell=cell,
                                          max_new=max_new)
     if subpix:
         pts_new = corner_subpix(img0, pts_new, ok_new)
-    uv_new = cam_mod.pixel_to_cam(cam, pts_new.to(torch.float64))[:, :2]
+    uv_new = cam_mod.pixel_to_cam(cam, pts_new.to(cam.fx.dtype))[:, :2]
     return pts_new, ok_new, uv_new
 
 
@@ -161,20 +166,21 @@ class Frontend:
                 lm_ok = np.asarray(lm_ok) & self.valid
             has_rot = self.prev_q_wc is not None and q_wc is not None
             qi = np.array([1.0, 0.0, 0.0, 0.0])
-            f64 = torch.float64
-            # the JAX package's draws for this frame counter, so both
-            # packages (and a replay) cull the same tracks
-            u = self._dev(ransac_uniforms(self.frame_count), f64)
+            f = self.cam.fx.dtype
+            # the JAX package's draws for this frame counter (in the
+            # geometry's dtype, as JAX draws them with x64 on or off), so
+            # both packages (and a replay) cull the same tracks
+            u = self._dev(ransac_uniforms(self.frame_count, dtype=_NP_DTYPE[f]))
             pyr, pts1_d, ok_d, uv1_d = track_frame(
                 self.cam, self.prev_pyr, img,
                 self._dev(self.pts), self._dev(self.valid),
-                self._dev(self.prev_q_wc if has_rot else qi, f64),
-                self._dev(q_wc if q_wc is not None else qi, f64),
+                self._dev(self.prev_q_wc if has_rot else qi, f),
+                self._dev(q_wc if q_wc is not None else qi, f),
                 has_rot,
-                self._dev(p_wc if p_wc is not None else np.zeros(3), f64),
-                self._dev(lm_pw, f64), self._dev(lm_ok, torch.bool),
+                self._dev(p_wc if p_wc is not None else np.zeros(3), f),
+                self._dev(lm_pw, f), self._dev(lm_ok, torch.bool),
                 self.levels, self.use_clahe, self.fm_ransac,
-                self._dev(self.uv_norm, f64), self.ransac_threshold, u,
+                self._dev(self.uv_norm, f), self.ransac_threshold, u,
             )
             pts1, ok, uv_new = (x.cpu().numpy() for x in (pts1_d, ok_d, uv1_d))
             dt = max(t - self.prev_time, 1e-3)

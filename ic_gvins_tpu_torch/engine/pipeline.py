@@ -12,6 +12,7 @@ receives the tracked points, poses and fixed landmarks of every frame.
 import time as _time
 
 import numpy as np
+import torch
 
 from ..common.logging import LOGW
 from ..vision import camera as cam_mod
@@ -22,11 +23,13 @@ from .frontend import Frontend
 
 class Pipeline:
     def __init__(self, cfg: EngineConfig, device=None, use_clahe: bool = True,
-                 drawer=None, cell: int | None = None):
+                 drawer=None, cell: int | None = None, dtype=torch.float64):
+        """``dtype``: the engine's type (the estimator's and the front end's
+        geometry); the images stay float32."""
         self.cfg = cfg
-        self.est = Estimator(cfg, device=device)
+        self.est = Estimator(cfg, device=device, dtype=dtype)
         cam = cam_mod.Camera.create(cfg.cam.intrinsic, cfg.cam.distortion,
-                                    cfg.cam.resolution, device=self.est.device)
+                                    cfg.cam.resolution, dtype=dtype, device=self.est.device)
         if cell is None:
             # a detection grid with comfortably more cells than the feature
             # budget (the reference: 200 px blocks on 1278 px imagery)

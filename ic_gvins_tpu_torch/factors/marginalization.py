@@ -1,5 +1,5 @@
 """Marginalization of the oldest node into a dense prior, then the window
-slide (``factors/marginalization.py``), float64 path.
+slide (``factors/marginalization.py``).
 
 The factors marginalized are those touching node 0: the existing prior,
 node 0's GNSS factor, preintegration interval 0 and every reprojection
@@ -7,6 +7,12 @@ factor anchored at node 0. Anchored landmarks form a diagonal block
 (eliminated by a divide), then node 0 is one 15x15 Jacobi-scaled block
 elimination with a relative eigenvalue gate. The prior stays a quadratic
 form (H, g) around the linearization snapshot.
+
+In float32, as in the JAX package's float32 mode, the gate is looser
+(1e-5 of the largest eigenvalue against 1e-8), the scaled prior is
+projected onto its numerically supported eigenspace (H and g), and the
+prior's gradient is zeroed: the prior is anchored at the marginalized
+estimate.
 
 ``remove_node`` and ``insert_node`` shift the window and the prior's node
 block around one interior node (second-new keyframes, late GNSS fixes).
@@ -39,13 +45,34 @@ def _schur_eliminate_scaled(H1, g1, k: int):
     A = 0.5 * (Hs[:k, :k] + Hs[:k, :k].T)
     B = Hs[:k, k:]
     w, v = torch.linalg.eigh(A)
-    gate = 1e-8 * torch.clamp(torch.max(w), min=1.0)
+    gate = (1e-8 if dtype == torch.float64 else 1e-5) * torch.clamp(torch.max(w), min=1.0)
     keep = w > gate
     w_inv = torch.where(keep, 1.0 / torch.where(keep, w, torch.ones_like(w)),
                         torch.zeros_like(w))
     a_inv = (v * w_inv[None, :]) @ v.T
     Hp_s = Hs[k:, k:] - B.T @ a_inv @ B
     gp_s = gs[k:] - B.T @ (a_inv @ gs[:k])
+    if dtype != torch.float64:
+        # Float32 rounding accumulated over the slides leaves the prior with
+        # negative eigenvalues, which hand LM a descent direction of the
+        # cost that the next marginalization bakes in (the bias runs away).
+        # Project H onto the eigenspace above a relative gate, exactly (an
+        # iterative clip leaves residuals that the unscaling inflates), and
+        # drop g's component outside it: a gradient over no curvature is a
+        # constant force with no restoring stiffness.
+        # The absent dims' rows and columns are exactly zero and project to
+        # zero, so the eigenspace is taken on the present dims alone (which
+        # costs one host read): on the whole matrix, with its ~200-fold
+        # zero eigenvalue, MKL's float32 eigh was measured not to converge.
+        idx = torch.nonzero(present[k:]).flatten()
+        if idx.numel():
+            Hq = Hp_s[idx][:, idx]
+            w2, v2 = torch.linalg.eigh(0.5 * (Hq + Hq.T))
+            gate2 = 1e-5 * torch.clamp(torch.max(w2), min=1e-30)
+            keep2 = (w2 > gate2).to(dtype)
+            sub = (idx[:, None], idx[None, :])
+            Hp_s = torch.zeros_like(Hp_s).index_put_(sub, (v2 * (w2 * keep2)[None, :]) @ v2.T)
+            gp_s = torch.zeros_like(gp_s).index_put_((idx,), v2 @ (keep2 * (v2.T @ gp_s[idx])))
     u2 = (present * sq)[k:]
     return Hp_s * u2[:, None] * u2[None, :], gp_s * u2
 
@@ -73,8 +100,6 @@ def marginalize_node0(window: Window, prior: Prior, cfg, params,
                       forgetting: float = 1.0) -> Prior:
     """The new prior (pre-roll coordinates) from marginalizing node 0 and
     its anchored landmarks; ``forgetting`` < 1 discounts H and g jointly."""
-    if window.nodes.p.dtype != torch.float64:
-        raise NotImplementedError("marginalization is ported for float64 only")
     DX = window.dim_x
     dtype, dev = window.nodes.p.dtype, window.nodes.p.device
     Hxx, gx, Hxl, hll, gl = _marg_blocks(window, prior, cfg, params)
@@ -92,6 +117,12 @@ def marginalize_node0(window: Window, prior: Prior, cfg, params,
 
     # step 2: eliminate node 0
     Hp, gp = _schur_eliminate_scaled(H1, g1, NODE_DOF)
+    if dtype != torch.float64:
+        # float32: keep the Schur information but anchor the prior's mean
+        # at the marginalized estimate (g = 0). The exact marginal gradient
+        # comes through 1e6-scale cancellations whose float32 noise would
+        # act as constant forces in the prior's weak directions.
+        gp = torch.zeros_like(gp)
 
     H_full = torch.zeros((DX, DX), dtype=dtype, device=dev)
     H_full[NODE_DOF:, NODE_DOF:] = 0.5 * (Hp + Hp.T) * forgetting

@@ -11,6 +11,7 @@ noise ordering (12): [gyro white, accel white, gyro bias RW, accel bias RW].
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..common import rotation as rot
@@ -195,10 +196,13 @@ def _propagate(phi, gt, noise, dt1):
 
 
 def _interval_length(imu: ImuSeq):
-    """The interval's length summed in sample order, as the JAX scan sums
-    it: a parallel scan on the card rounds otherwise, and node times feed
-    comparisons (the keyframe interval) that a last bit can flip."""
-    return torch.cumsum(imu.dt[..., 1:].cpu(), -1)[..., -1].to(imu.dt.device)
+    """The interval's length summed in sample order and in the samples'
+    dtype, as the JAX scan sums it: a parallel scan on the card rounds
+    otherwise, torch's CPU cumsum accumulates float32 in float64, and node
+    times feed comparisons (the keyframe interval) that a last bit can
+    flip. numpy's cumsum adds one sample after the other in the dtype."""
+    t = np.cumsum(imu.dt[..., 1:].cpu().numpy(), -1)[..., -1]
+    return torch.as_tensor(t, device=imu.dt.device)
 
 
 def preintegrate(

@@ -438,18 +438,42 @@ def free_mask_lm(window: Window) -> torch.Tensor:
     return window.lm_valid & (torch.sum(obs_mask(window), 1) > 0)
 
 
+def _ns_solve(A, b, iters: int = 26, refine: int = 3):
+    """Solve A y = b for a symmetric PD, Jacobi-normalized A by the
+    Newton-Schulz inverse iteration plus iterative refinement (the JAX
+    package's float32 branch, kept as it is so that the float32 numerics
+    are those its design was tuned on). X0 = I / max row-sum gives
+    ||I - A X0||_2 < 1 for any SPD A (Gershgorin); the refinement passes
+    take the solution to the dtype's noise floor while the inverse iterate
+    is still coarse."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    X = eye / torch.max(torch.sum(torch.abs(A), -1))
+    for _ in range(iters):
+        X = X @ (2.0 * eye - A @ X)
+    y = X @ b
+    for _ in range(refine):
+        y = y + X @ (b - A @ y)
+    return y
+
+
 def solve_reduced(H_red, g_red):
-    """Solve the Jacobi-scaled SPD reduced system H_red y = g_red by a
-    dense Cholesky (the JAX package's float64 branch)."""
+    """Solve the Jacobi-scaled SPD reduced system H_red y = g_red: a dense
+    Cholesky in float64, the Newton-Schulz iteration in float32, as the
+    JAX package does. Scaled to unit diagonal, the system keeps full
+    precision in float32, where the raw information (~1e2 GNSS to ~1e10
+    bias links) would exceed its 7 digits."""
     dtype = H_red.dtype
-    if dtype != torch.float64:
-        raise NotImplementedError("the solver is ported for float64 only")
-    eps = 1e-12
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"solve_reduced takes float64 or float32, not {dtype}")
+    eps = 1e-12 if dtype == torch.float64 else 1e-6
     s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H_red), min=eps))
     H_n = H_red * s[:, None] * s[None, :]
     H_n = H_n + eps * torch.eye(H_n.shape[0], dtype=dtype, device=H_n.device)
-    L = torch.linalg.cholesky(H_n)
-    y = torch.cholesky_solve((s * g_red)[:, None], L)[:, 0]
+    if dtype == torch.float64:
+        L = torch.linalg.cholesky(H_n)
+        y = torch.cholesky_solve((s * g_red)[:, None], L)[:, 0]
+    else:
+        y = _ns_solve(H_n, s * g_red)
     return s * y
 
 

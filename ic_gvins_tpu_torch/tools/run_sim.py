@@ -10,10 +10,13 @@ The offline counterpart of the reference's ROS node and rosbag replay
 (``fusion_ros.cc``), with its GNSS-outage fault injection
 (``--gnss-outage-time``, ``fusion_ros.cc:199-211``). The flags and the
 printed JSON line are those of the JAX package's ``tools/run_sim.py``,
-except: ``--device`` (default the first CUDA card) replaces ``--platform``,
-and ``--f32`` is refused because the port's solver runs in float64 only.
-The streams are drawn from ``torch.Generator``s seeded from ``--seed``
-(``tools/sequence.py``), so they are not the JAX package's draws.
+except that ``--device`` (default the first CUDA card) replaces
+``--platform``. ``--f32`` runs the engine in float32 with window
+re-centering on (the line adds ``n_recenters`` and the engine's
+``dtype``); the simulator stays float64, where the JAX package's x64
+switch makes its synthesis float32 too. The streams are drawn from
+``torch.Generator``s seeded from ``--seed`` (``tools/sequence.py``), so
+they are not the JAX package's draws.
 """
 
 import argparse
@@ -43,7 +46,8 @@ def build_parser():
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     ap.add_argument("--f32", action="store_true",
-                    help="float32 engine (not ported: the solver is float64 only)")
+                    help="run the engine in float32 with window re-centering on "
+                         "(the JAX package's TPU numeric mode)")
     ap.add_argument("--config", default=None,
                     help="reference-format gvins.yaml: engine keys are loaded via "
                          "EngineConfig.from_yaml; the runner keys isusegnssoutage / "
@@ -55,8 +59,7 @@ def build_parser():
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.f32:
-        raise NotImplementedError("--f32: the port's solver runs in float64 only")
+    import torch
 
     from ..data.types import NavState
     from ..engine.config import EngineConfig, OdoConfig
@@ -89,7 +92,8 @@ def main(argv=None):
         cfg, duration=args.duration, with_vision=args.vision, gnss_std=args.gnss_std,
         seed=args.seed, imu_rate=args.imu_rate, frame_rate=args.frame_rate,
         n_landmarks=args.landmarks, gnss_until=args.gnss_outage_time,
-        odo_sodo_true=args.sodo_true if args.odo else None, device=args.device)
+        odo_sodo_true=args.sodo_true if args.odo else None, device=args.device,
+        dtype=torch.float32 if args.f32 else torch.float64)
     wall = time.perf_counter() - t0
 
     writer = RunWriter(args.out)
@@ -119,6 +123,9 @@ def main(argv=None):
         state=est.state,
         outdir=args.out,
     )
+    if args.f32:
+        result["n_recenters"] = est.n_recenters
+        result["dtype"] = str(est.window.nodes.p.dtype).replace("torch.", "")
     if args.odo:
         result["sodo_est"] = round(float(est.window.sodo), 5)
         result["sodo_true"] = args.sodo_true

@@ -31,8 +31,10 @@ Two phases, as in the JAX package's ``tools/run_urban.py``:
   data and the result at the end.
 
 ``--device`` (default the first CUDA card) replaces the JAX runner's
-``--tpu`` and ``--no-pallas``; ``--f32`` is refused because the port's
-solver runs in float64 only (``n_recenters`` is always 0).
+``--tpu`` and ``--no-pallas``. ``--f32`` replays with the engine in
+float32 and window re-centering on (``result.json``'s ``mode`` "f32",
+``n_recenters``, and the prior's spectrum); ``--gen`` stays float64, as in
+the JAX runner.
 """
 
 import argparse
@@ -60,7 +62,8 @@ def build_parser():
                     help="flat list of outage (start, end) pairs in seconds")
     ap.add_argument("--no-vision", action="store_true", help="GINS-only endurance (no camera)")
     ap.add_argument("--f32", action="store_true",
-                    help="float32 engine (not ported: the solver is float64 only)")
+                    help="replay with the engine in float32 and window re-centering on "
+                         "(the JAX package's TPU numeric mode); --gen stays float64")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     ap.add_argument("--features", type=int, default=120)
@@ -186,12 +189,15 @@ def _host(x) -> np.ndarray:
 def replay(args) -> dict:
     """Replay ``args.sensors`` through the port's ``Pipeline``; returns the
     final result (also written to ``<out>/result.json``)."""
+    import torch
+
     from ..data import simulator as sim
     from ..engine.pipeline import Pipeline
 
     d = np.load(args.sensors)
     cfg = urban_config(args, d["ext_q"])
-    pipe = Pipeline(cfg, device=args.device, use_clahe=False)
+    pipe = Pipeline(cfg, device=args.device, use_clahe=False,
+                    dtype=torch.float32 if args.f32 else torch.float64)
     est = pipe.est
 
     imu_t, imu_dt = d["imu_time"], d["imu_dt"]
@@ -236,7 +242,7 @@ def replay(args) -> dict:
         # errors in and just after an outage vs the rest
         in_out = np.array([any(a - 2 <= t <= b + 30 for a, b in outages) for t in ts], bool)
         result = dict(
-            mode="f64",
+            mode="f32" if est.window.nodes.p.dtype == torch.float32 else "f64",
             partial=bool(partial),
             sim_t_reached=float(ts[-1]) if ts.size else 0.0,
             duration_s=args.duration,
@@ -319,8 +325,6 @@ def replay(args) -> dict:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.f32:
-        raise NotImplementedError("--f32: the port's solver runs in float64 only")
     os.makedirs(args.out, exist_ok=True)
     if args.sensors is None:
         args.sensors = os.path.join(args.out, "sensors.npz")

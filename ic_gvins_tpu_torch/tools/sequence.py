@@ -94,22 +94,24 @@ def make_streams(cfg, duration=15.0, with_vision=False, gnss_std=0.05, seed=0,
 def run_sequence(cfg, duration=15.0, with_vision=False, gnss_std=0.05, seed=0,
                  imu_rate=200.0, frame_rate=10.0, gnss_rate=1.0, n_landmarks=96,
                  gnss_until=None, odo_sodo_true=None, imu_gap=None, gnss_outage=None,
-                 mesh=None, device=None, draws=None):
+                 mesh=None, device=None, draws=None, dtype=torch.float64):
     """Feed a simulated drive (``make_streams``) to a port ``Estimator`` in
     time order, as ``tests/test_estimator.py::run_sequence`` does: GNSS
     only until ``gnss_until`` and not in ``gnss_outage`` = [t0, t1); no
     IMU samples in ``imu_gap`` = (t0, t1], the next one spanning the gap
     (the ROS node computes increments as rate times the time since the last
     sample, ``fusion_ros.cc:145-150``). A ``mesh`` (``parallel.Mesh``)
-    makes the rounds landmark-sharded (``Estimator.set_mesh``). Returns
+    makes the rounds landmark-sharded (``Estimator.set_mesh``); ``dtype``
+    is the engine's (the streams are float64 either way). Returns
     (estimator, trajectory, params)."""
-    est = Estimator(cfg, device=device)
+    est = Estimator(cfg, device=device, dtype=dtype)
     if mesh is not None:
         est.set_mesh(mesh)
     s = make_streams(cfg, duration, with_vision, gnss_std, seed, imu_rate, frame_rate,
                      gnss_rate, n_landmarks, odo_sodo_true, est.device, draws)
     if s["cam"] is not None:
-        est.window = est.window._replace(ext_p=s["cam"][0], ext_q=s["cam"][1])
+        est.window = est.window._replace(ext_p=s["cam"][0].to(dtype),
+                                         ext_q=s["cam"][1].to(dtype))
     imu, gnss, frames = s["imu"], s["gnss"], s["frames"]
     odo_t, odo_v = s["odo"] if s["odo"] is not None else (None, None)
     imu_t, imu_dt = imu.time.cpu().numpy(), imu.dt.cpu().numpy()

@@ -5,8 +5,9 @@ All hypotheses are evaluated at once: H random 8-point subsets each give
 an F candidate by the normalized 8-point algorithm (batched 9 x 9
 ``eigh``), every candidate is scored on every correspondence with the
 Sampson distance, and the best-supported candidate is refit on its
-inliers. Everything runs in float64 on the device of the points, with no
-data-dependent trip counts and no host reads.
+inliers. Everything runs in the points' dtype (float64, or float32 in the
+engine's float32 mode) on their device, with no data-dependent trip
+counts and no host reads.
 
 ``fundamental_ransac`` maps given uniform numbers to the 8-point subsets
 as the JAX package does (the front end passes JAX's own draws,
@@ -69,19 +70,19 @@ def _sampson_sq(F, p0h, p1h):
 
 def sample_indices(valid, u):
     """(H, 8) indices into the points, drawn uniformly (with replacement)
-    from the valid ones: the uniforms ``u`` (H, 8) in [0, 1), float64,
-    scaled by the valid count and truncated."""
+    from the valid ones: the uniforms ``u`` (H, 8) in [0, 1), scaled by the
+    valid count in their own dtype and truncated."""
     order = torch.argsort((~valid).to(torch.uint8), stable=True)  # valid first
     m = torch.clamp(valid.sum(), min=1)
-    u = torch.as_tensor(u, dtype=torch.float64, device=valid.device)
+    u = torch.as_tensor(u, device=valid.device)
     return order[torch.minimum((u * m).to(torch.int64), m - 1)]
 
 
 def fundamental_ransac_idx(pts0, pts1, valid, threshold, idx):
     """RANSAC with given 8-point subsets ``idx`` (H, 8); see
     ``fundamental_ransac``."""
-    pts0 = pts0.to(torch.float64)
-    pts1 = pts1.to(torch.float64)
+    if not pts0.is_floating_point() or pts0.dtype != pts1.dtype:
+        raise TypeError("pts0 and pts1 must be floating point tensors of one dtype")
     p0n, T0 = _normalize(pts0, valid)
     p1n, T1 = _normalize(pts1, valid)
 

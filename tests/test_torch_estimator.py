@@ -143,10 +143,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", ["recenter_threshold", "set_mesh", "run_kaist_f32"])
-def test_unported_options_raise(option):
-    """Options and entry points the port does not have refuse to run
-    instead of being ignored; ``set_mesh`` (ported) refuses a mesh whose
-    shard count does not divide the landmark capacity."""
+def test_unported_options_raise(option, tmp_path):
+    """What cannot run refuses instead of being ignored: ``set_mesh``
+    refuses a mesh whose shard count does not divide the landmark capacity,
+    the engine a dtype other than float64 and float32. The float32 mode,
+    which these cases refused before it was ported, now runs and is held
+    to it: ``recenter_threshold`` is kept when configured and resolves to
+    20 m in float32 and 0 in float64, every device tensor of a float32
+    engine is float32; ``run_kaist --f32`` replays (GNSS/INS from a small
+    rosbag) in float32 and says so."""
     if option == "set_mesh":
         from ic_gvins_tpu_torch.parallel import Mesh
 
@@ -154,13 +159,29 @@ def test_unported_options_raise(option):
             Estimator(EngineConfig(max_nodes=4, max_landmarks=4), device="cpu").set_mesh(
                 Mesh({"lm": 3}, device="cpu"))
         return
-    with pytest.raises(NotImplementedError):
-        if option == "recenter_threshold":
-            Estimator(EngineConfig(recenter_threshold=20.0), device="cpu")
-        else:
-            from ic_gvins_tpu_torch.tools import run_kaist
+    if option == "recenter_threshold":
+        small = EngineConfig(max_nodes=4, max_landmarks=4)
+        est = Estimator(EngineConfig(max_nodes=4, max_landmarks=4, recenter_threshold=5.0),
+                        device="cpu")
+        assert est.recenter_threshold == 5.0 and est.window.nodes.p.dtype == torch.float64
+        assert Estimator(small, device="cpu").recenter_threshold == 0.0
+        e32 = Estimator(small, device="cpu", dtype=torch.float32)
+        assert e32.recenter_threshold == 20.0
+        leaves = [x for t in (e32.window, e32.prior, e32.params, e32.solver_cfg)
+                  for x in port_est._leaves(t) if x.is_floating_point()]
+        assert leaves and all(x.dtype == torch.float32 for x in leaves)
+        with pytest.raises(TypeError):
+            Estimator(small, device="cpu", dtype=torch.float16)
+        return
+    from test_rosbag import make_bag
 
-            run_kaist.main(["--data", "unused", "--f32", "--device", "cpu"])
+    from ic_gvins_tpu_torch.tools import run_kaist
+
+    bag = str(tmp_path / "t.bag")
+    make_bag(bag, compression="bz2")
+    res = run_kaist.main(["--data", bag, "--no-vision", "--f32", "--out",
+                          str(tmp_path / "run"), "--device", "cpu"])
+    assert res["dtype"] == "float32" and res["n_recenters"] == 0 and res["imu_repaired"] == 18
 
 
 def test_states_and_map_point_types_are_the_reference_ones():

@@ -1,7 +1,8 @@
 """PyTorch port: ``common/prng.py``, JAX's threefry random numbers in
 numpy, bit for bit against ``jax.random`` (float64, as the JAX package's
-tests run it), and the front end's FM-RANSAC subsets drawn with them
-against the subsets the JAX front end draws for the same frame."""
+tests run it, and float32, as its float32 mode draws them), and the front
+end's FM-RANSAC subsets drawn with them against the subsets the JAX front
+end draws for the same frame."""
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,24 @@ def test_uniforms_are_jax_bit_for_bit(shape):
         np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=f"frame {i}")
         if shape == (128, 8):
             np.testing.assert_array_equal(_bits(prng.ransac_uniforms(int(i))), _bits(want))
+
+
+@pytest.mark.parametrize("shape", [(128, 8), (5, 3), (1,)])
+def test_float32_uniforms_are_jax_bit_for_bit(shape):
+    """The same in float32 (one 32-bit word per element, the xor of the
+    hash's two words), as the JAX package draws them with x64 off."""
+    draw = jax.jit(jax.vmap(lambda i: jax.random.uniform(
+        jax.random.fold_in(jax.random.PRNGKey(0), i), shape, dtype=jnp.float32)))
+    wants = np.asarray(draw(jnp.asarray(FRAMES, jnp.uint32)))
+    for i, want in zip(FRAMES, wants):
+        got = prng.uniform(prng.fold_in(prng.prng_key(0), int(i)), shape, np.float32)
+        assert got.dtype == np.float32 and got.shape == shape
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32),
+                                      err_msg=f"frame {i}")
+        if shape == (128, 8):
+            np.testing.assert_array_equal(
+                prng.ransac_uniforms(int(i), dtype=np.float32).view(np.uint32),
+                want.view(np.uint32))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 5, 2**32 + 3, 2**63 - 1])

@@ -74,9 +74,9 @@ def small():
 class Recorder:
     """An ``Estimator`` stand-in that records what ``run_sequence`` feeds."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dtype=torch.float64):
         self.cfg, self.device, self.calls = cfg, torch.device(device), []
-        self.window = test.Estimator(cfg, device=device).window
+        self.window = test.Estimator(cfg, device=device, dtype=dtype).window
 
     def add_imu(self, *a):
         self.calls.append(("imu", *a))
@@ -165,7 +165,8 @@ def test_ate_matches_jax():
 
 def test_run_sim_end_to_end(tmp_path):
     """GINS for 6 s: the JSON line, the reference-format files, an ATE at
-    the GNSS noise level; --f32 is refused."""
+    the GNSS noise level; with --f32 the engine runs in float32 (the line
+    says so) at the same bound."""
     res = run_sim.main(["--duration", "6", "--device", "cpu", "--out", str(tmp_path)])
     assert set(res) == {"ate_rmse_m", "ate_max_m", "nodes_processed", "wall_s", "nodes_per_s",
                         "state", "outdir"}
@@ -173,8 +174,10 @@ def test_run_sim_end_to_end(tmp_path):
     assert res["ate_rmse_m"] < 0.13  # tests/test_estimator.py's GINS bound
     for name in ("gvins.nav", "trajectory.csv", "statistics.txt", "extrinsic.txt"):
         assert os.path.getsize(tmp_path / name) > 0
-    with pytest.raises(NotImplementedError):
-        run_sim.main(["--f32", "--device", "cpu"])
+    res = run_sim.main(["--f32", "--duration", "6", "--device", "cpu", "--out",
+                        str(tmp_path / "f32")])
+    assert res["dtype"] == "float32" and res["n_recenters"] == 0
+    assert res["state"] == test.INITIALIZING_INS and res["ate_rmse_m"] < 0.13
 
 
 def test_run_sim_honours_config_runner_keys(tmp_path, monkeypatch):
@@ -219,18 +222,27 @@ def test_run_urban_gen_matches_jax_file(tmp_path):
 
 def test_run_urban_replays_jax_drive(tmp_path):
     """The JAX-written drive cut to 20 s through the port's Pipeline at
-    reduced width: every output, the ATE bound, a checkpoint that loads;
-    --f32 refused."""
-    ref = {k: v for k, v in np.load(URBAN90).items() if not k.startswith("jax/")}
-    for prefix, t in (("imu_", "imu_time"), ("gnss_", "gnss_time"), ("frame_", "frame_times")):
-        keep = ref[t] <= 20.0
-        ref.update({k: v[keep] for k, v in ref.items() if k.startswith(prefix)})
+    reduced width: every output, the ATE bound, a checkpoint that loads,
+    no re-centering in float64; then its first 3 s with --f32, whose
+    result says the engine ran in float32."""
+    full = {k: v for k, v in np.load(URBAN90).items() if not k.startswith("jax/")}
+
+    def cut(t_end, path):
+        out = dict(full)
+        for prefix, t in (("imu_", "imu_time"), ("gnss_", "gnss_time"),
+                          ("frame_", "frame_times")):
+            keep = full[t] <= t_end
+            out.update({k: v[keep] for k, v in full.items() if k.startswith(prefix)})
+        np.savez(path, **out)
+        return out
+
     sensors = tmp_path / "sensors.npz"
-    np.savez(sensors, **ref)
+    ref = cut(20.0, sensors)
     res = run_urban.main(["--duration", "20", "--features", "40", "--max-landmarks", "64",
                           "--checkpoint-every", "15", "--device", "cpu",
                           "--sensors", str(sensors), "--out", str(tmp_path)])
     assert not res["partial"] and res["n_recenters"] == 0 and res["frames"] == 198
+    assert res["mode"] == "f64"
     assert res["ate_rmse_m"] < URBAN_ATE, res["ate_rmse_m"]
     with open(tmp_path / "result.json") as f:
         assert json.load(f)["ate_rmse_m"] == res["ate_rmse_m"]
@@ -240,8 +252,11 @@ def test_run_urban_replays_jax_drive(tmp_path):
         ["--max-landmarks", "64", "--features", "40"]), ref["ext_q"]), device="cpu")
     est.load_checkpoint(str(tmp_path / "ckpt.npz"))
     assert est.state >= test.TRACKING_INITIALIZING and est.n_nodes > 0
-    with pytest.raises(NotImplementedError):
-        run_urban.main(["--f32", "--out", str(tmp_path)])
+    cut(3.0, tmp_path / "sensors3.npz")
+    res = run_urban.main(["--f32", "--duration", "3", "--features", "40", "--max-landmarks",
+                          "64", "--device", "cpu", "--sensors", str(tmp_path / "sensors3.npz"),
+                          "--out", str(tmp_path / "f32")])
+    assert res["mode"] == "f32" and not res["partial"] and res["frames"] == 28
 
 
 def test_timecost(tmp_path):

@@ -12,10 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_solver import CLOSED, ITERATIVE, assert_rel, one_torch_thread  # noqa: F401
+from test_torch_solver import CLOSED, ITERATIVE, assert_rel, one_torch_thread, tiny_problem  # noqa: F401
 from test_vision import random_texture, shift_image
 
-from __graft_entry__ import _tiny_problem
 from ic_gvins_tpu.engine.frontend import Frontend as JFrontend
 from ic_gvins_tpu.vision.camera import Camera as JCamera
 from ic_gvins_tpu_torch.convert import to_numpy, to_torch
@@ -30,7 +29,6 @@ from ic_gvins_tpu_torch.vision.camera import Camera
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
 import chip_smoke  # noqa: E402
-import make_torch_fixture  # noqa: E402
 
 INTR, DIST, RES = (200.0, 201.0, 80.0, 60.0), (-0.05, 0.02, 1e-4, 2e-4), (160, 120)
 
@@ -184,13 +182,13 @@ def _port_round(win, prior, cfg, params, imu, iters):
 
 @pytest.fixture(scope="module")
 def rounds():
-    win, prior, cfg, params = _tiny_problem()
-    imu = make_torch_fixture.raw_imu(win.n_nodes - 1, params)
-    want = make_torch_fixture.jax_keyframe_round(win, prior, cfg, params, imu, iters=20)
-    got = _port_round(
-        *(to_torch(t, to_numpy(x), "cpu") for t, x in (
-            (Window, win), (Prior, prior), (SolverConfig, cfg),
-            (IntegrationParams, params), (ImuSeq, imu))), 20)
+    """The port's round on _tiny_problem's window beside the JAX round's
+    results stored with it (``tools/make_torch_fixture.py --tiny``:
+    ``jax_keyframe_round``, 20 iterations)."""
+    _, inp, want, _ = tiny_problem()
+    got = _port_round(*(to_torch(t, inp[k], "cpu") for t, k in (
+        (Window, "window"), (Prior, "prior"), (SolverConfig, "cfg"),
+        (IntegrationParams, "params"), (ImuSeq, "imu"))), 20)
     return want, got
 
 
@@ -200,29 +198,28 @@ def test_keyframe_round_matches_jax(rounds, stage):
     want, (w, invd, ok, w_opt, (s1, s2, nc), w_sl, pr) = rounds
     if stage == "preintegrate":
         for k in ("dp", "dv", "dq", "jac", "cov", "dt", "sum_dt_pn"):
-            assert_rel(getattr(w.preint, k), getattr(want["preint"], k), CLOSED, k)
+            assert_rel(getattr(w.preint, k), want["preint"][k], CLOSED, k)
     elif stage == "triangulate":
-        np.testing.assert_array_equal(ok.numpy(), np.asarray(want["tri_ok"]))
-        m = np.asarray(want["tri_ok"])
+        np.testing.assert_array_equal(ok.numpy(), want["tri"]["ok"])
+        m = want["tri"]["ok"]
         assert m.any()
-        assert_rel(invd.numpy()[m], np.asarray(want["tri_invdepth"])[m], CLOSED, "invdepth")
+        assert_rel(invd.numpy()[m], want["tri"]["invdepth"][m], CLOSED, "invdepth")
     elif stage == "optimize":
-        for ts, js in ((s1, want["stats1"]), (s2, want["stats2"])):
-            assert (ts.iters_run, ts.accepted) == (int(js.iters_run), int(js.accepted))
-            assert_rel(ts.cost1, js.cost1, ITERATIVE, "cost")
-        assert int(nc) == int(want["n_culled"])
+        opt = want["opt"]
+        for ts, js in ((s1, opt["stats1"]), (s2, opt["stats2"])):
+            assert (ts.iters_run, ts.accepted) == (int(js["iters_run"]), int(js["accepted"]))
+            assert_rel(ts.cost1, js["cost1"], ITERATIVE, "cost")
+        assert int(nc) == int(opt["n_culled"])
         for k in ("p", "q", "v", "bg", "ba"):
-            assert_rel(getattr(w_opt.nodes, k), getattr(want["opt_window"].nodes, k),
-                       ITERATIVE, k)
-        assert_rel(w_opt.lm_invdepth, want["opt_window"].lm_invdepth, ITERATIVE, "invdepth")
+            assert_rel(getattr(w_opt.nodes, k), opt["nodes"][k], ITERATIVE, k)
+        assert_rel(w_opt.lm_invdepth, opt["lm_invdepth"], ITERATIVE, "invdepth")
     else:
-        assert_rel(pr.H, want["prior"].H, ITERATIVE, "H")
-        assert_rel(pr.g, want["prior"].g, ITERATIVE, "g")
+        marg = want["marg"]
+        assert_rel(pr.H, marg["H"], ITERATIVE, "H")
+        assert_rel(pr.g, marg["g"], ITERATIVE, "g")
         for k in ("p", "q", "v"):
-            assert_rel(getattr(w_sl.nodes, k), getattr(want["slid_window"].nodes, k),
-                       ITERATIVE, k)
-        np.testing.assert_array_equal(w_sl.lm_valid.numpy(),
-                                      np.asarray(want["slid_window"].lm_valid))
+            assert_rel(getattr(w_sl.nodes, k), marg["nodes"][k], ITERATIVE, k)
+        np.testing.assert_array_equal(w_sl.lm_valid.numpy(), marg["lm_valid"])
 
 
 def test_committed_fixture_round_on_cpu():

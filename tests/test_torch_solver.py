@@ -1,7 +1,12 @@
 """PyTorch port: rotation, mechanization, preintegration, factor
 evaluation, assembly, Schur solve, LM and marginalization against the JAX
 package, on ``__graft_entry__._tiny_problem()`` (6 nodes x 16 landmarks,
-float64) carried over with ``ic_gvins_tpu_torch.convert``.
+float64) carried over with ``ic_gvins_tpu_torch.convert``. The problem is
+read from ``tests/fixtures/torch_tiny.npz`` (``tools/make_torch_fixture.py
+--tiny``), where ``_tiny_problem()`` stored it, rather than simulated anew
+in every test process; so are the JAX results of the two costliest
+fixtures (the simulated intervals' preintegration and the 20-iteration
+``optimize_impl``), which the tests hold the port against as before.
 
 Tolerances are relative to each array's largest entry: 1e-9 for closed
 forms (the two sides differ only in summation order), 1e-7 for LM and
@@ -14,17 +19,18 @@ import numpy as np
 import pytest
 import torch
 
-from __graft_entry__ import _tiny_problem
+import os
+
 from ic_gvins_tpu.common import rotation as jrot
-from ic_gvins_tpu.data import simulator as sim
 from ic_gvins_tpu.factors import marginalization as jmarg
 from ic_gvins_tpu.ins import mechanization as jmech
 from ic_gvins_tpu.ins import preintegration as jpre
 from ic_gvins_tpu.solver import assembly as jasm
 from ic_gvins_tpu.solver import lm as jlm
+from ic_gvins_tpu.data import types as jtypes
 from ic_gvins_tpu.solver import window as jwin
 from ic_gvins_tpu_torch.common import rotation as trot
-from ic_gvins_tpu_torch.convert import to_numpy, to_torch
+from ic_gvins_tpu_torch.convert import to_numpy, to_torch, unflatten
 from ic_gvins_tpu_torch.data.types import ImuSeq, IntegrationParams, NavState
 from ic_gvins_tpu_torch.factors import marginalization as tmarg
 from ic_gvins_tpu_torch.ins import mechanization as tmech
@@ -36,6 +42,8 @@ from ic_gvins_tpu_torch.solver.window import Prior, SolverConfig, Window
 
 CLOSED = 1e-9
 ITERATIVE = 1e-7
+TINY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+                    "fixtures", "torch_tiny.npz")
 
 # one XLA compile per structure: flags and selections are traced arguments
 _j_assemble = jax.jit(jasm.assemble_blocks,
@@ -86,9 +94,39 @@ def perturbed(win, seed=0):
                         lm_invdepth=win.lm_invdepth * (1 + 0.05 * rng.standard_normal(lm)))
 
 
+def jax_tree(cls, tree):
+    """A NamedTuple of the JAX package (``Window``, ``Prior``, ...) from nested
+    dicts of numpy arrays, the inverse of ``to_numpy``; absent fields keep
+    their defaults."""
+    nested = {jwin.Window: {"nodes": jtypes.NavState, "preint": jpre.PreintData},
+              jpre.PreintData: {"end_state": jtypes.NavState},
+              jwin.Prior: {"lin_nodes": jtypes.NavState}}.get(cls, {})
+    return cls(**{k: jax_tree(nested[k], v) if k in nested else jnp.asarray(v)
+                  for k, v in tree.items()})
+
+
+def tiny_problem():
+    """``_tiny_problem()``'s (window, prior, cfg, params) and what
+    ``tools/make_torch_fixture.py --tiny`` stored with it: (JAX state, the
+    round's inputs, the round's JAX results, the whole file), as nested
+    dicts of numpy arrays."""
+    fx = unflatten(dict(np.load(TINY)))
+    inp = fx["in"]
+    state = tuple(jax_tree(cls, inp[k]) for cls, k in (
+        (jwin.Window, "window"), (jwin.Prior, "prior"), (jwin.SolverConfig, "cfg"),
+        (jtypes.IntegrationParams, "params")))
+    return state, inp, fx["out"], fx
+
+
+@pytest.fixture(scope="module")
+def stored():
+    """The fixture file's JAX results (``tiny_problem``'s last item)."""
+    return tiny_problem()[3]
+
+
 @pytest.fixture(scope="module")
 def tiny():
-    win, prior, cfg, params = _tiny_problem()
+    (win, prior, cfg, params), _, _, _ = tiny_problem()
     return perturbed(win), prior, cfg, params
 
 
@@ -136,19 +174,18 @@ def test_mechanization_pieces_match_jax():
 
 
 @pytest.fixture(scope="module")
-def preint_case(tiny):
-    """Two 0.4 s intervals of simulated 200 Hz IMU from biased start states."""
+def preint_case(tiny, stored):
+    """Two 0.4 s intervals of simulated 200 Hz IMU from biased start states;
+    the IMU and its JAX preintegration (``jax.vmap(preintegrate)``) are
+    the stored ones."""
     win, _, _, params = tiny
-    traj = sim.car_trajectory()
-    imus = [sim.simulate_imu(traj, params, 5.0 + 0.4 * i, 0.4, 200.0) for i in range(2)]
-    imu = jax.tree.map(lambda *xs: jnp.stack(xs), *imus)
     state0 = jax.tree.map(lambda x: x[:2], win.nodes)
     state0 = state0._replace(ba=state0.ba + 1e-3)
     state1 = jax.tree.map(lambda x: x[1:3], win.nodes)
-    want = jax.jit(jax.vmap(jpre.preintegrate, in_axes=(None, 0, 0)))(params, state0, imu)
+    want = jax_tree(jpre.PreintData, stored["preint_case"]["want"])
     tp = to_torch(IntegrationParams, to_numpy(params), "cpu")
     got = tpre.preintegrate(tp, to_torch(NavState, to_numpy(state0), "cpu"),
-                            to_torch(ImuSeq, to_numpy(imu), "cpu"))
+                            to_torch(ImuSeq, stored["preint_case"]["imu"], "cpu"))
     return params, state0, state1, want, tp, got
 
 
@@ -251,9 +288,13 @@ def test_robust_cost_and_schur_solve_match_jax(tiny):
 
 
 @pytest.fixture(scope="module")
-def optimized(tiny):
-    win, prior, cfg, params = tiny
-    want = jax.jit(lambda *a: jlm.optimize_impl(*a, iters=20))(win, prior, cfg, params)
+def optimized(tiny, stored):
+    """``optimize_impl(iters=20)`` of the tiny window: the stored JAX result
+    and the port's."""
+    opt = stored["optimized"]
+    want = (jax_tree(jwin.Window, opt["window"]),
+            (jax_tree(jlm.LMStats, opt["stats1"]), jax_tree(jlm.LMStats, opt["stats2"]),
+             opt["n_culled"]))
     got = tlm.optimize_impl(*port(tiny), iters=20)
     return want, got
 

@@ -9,6 +9,14 @@ preintegrate (23 intervals) -> triangulate (anchor node vs newest
 observing node) -> ``optimize_impl(iters=20)`` -> ``marginalize_and_slide``.
 
     python tools/make_torch_fixture.py [--out tests/fixtures/torch_slice_24x192.npz]
+
+``--tiny`` writes the same for ``_tiny_problem()``'s 6-node x 16-landmark
+window into ``tests/fixtures/torch_tiny.npz``, with the JAX results of
+``tests/test_torch_solver.py``'s ``preint_case`` (two simulated intervals
+preintegrated from its perturbed window) and ``optimized``
+(``optimize_impl`` of that window, 20 iterations). The port's CPU tests
+load them instead of rebuilding them in every test process (~2 minutes
+of XLA compiles each).
 """
 
 import argparse
@@ -16,9 +24,10 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 DEFAULT_OUT = os.path.join(ROOT, "tests", "fixtures", "torch_slice_24x192.npz")
+TINY_OUT = os.path.join(ROOT, "tests", "fixtures", "torch_tiny.npz")
 N_NODES, N_LANDMARKS, ITERS = 24, 192, 20
 # _tiny_problem's node times: t0 + i * node_dt, IMU at 200 Hz
 T0, NODE_DT, IMU_RATE = 5.0, 0.4, 200.0
@@ -90,18 +99,13 @@ def jax_keyframe_round(win, prior, cfg, params, imu, iters=ITERS):
     }
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=DEFAULT_OUT)
-    args = ap.parse_args()
-    _jax()
+def round_tree(win, prior, cfg, params, imu):
+    """The round's inputs ("in") and the JAX results of its stages ("out"),
+    as nested dicts of numpy arrays."""
     import numpy as np
 
-    from __graft_entry__ import _tiny_problem
-    from ic_gvins_tpu_torch.convert import flatten, to_numpy
+    from ic_gvins_tpu_torch.convert import to_numpy
 
-    win, prior, cfg, params = _tiny_problem(n_nodes=N_NODES, n_landmarks=N_LANDMARKS)
-    imu = raw_imu(N_NODES - 1, params)
     out = jax_keyframe_round(win, prior, cfg, params, imu)
     pre = out["preint"]
     tree = {
@@ -127,14 +131,65 @@ def main():
                      "lm_ref": np.asarray(out["slid_window"].lm_ref)},
         },
     }
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    np.savez_compressed(args.out, **flatten(tree))
-    s1, s2 = out["stats1"], out["stats2"]
-    print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes); "
-          f"phase1 iters {int(s1.iters_run)} accepted {int(s1.accepted)}, "
-          f"phase2 iters {int(s2.iters_run)} accepted {int(s2.accepted)}, "
-          f"cost {float(s1.cost0):.6g} -> {float(s2.cost1):.6g}, "
-          f"triangulated {int(np.sum(np.asarray(out['tri_ok'])))}")
+    return tree
+
+
+def solver_cases(win, prior, cfg, params):
+    """The JAX results ``tests/test_torch_solver.py`` holds the port against
+    on its perturbed tiny window: ``preint_case`` and ``optimized``."""
+    jax = _jax()
+    import jax.numpy as jnp
+    import numpy as np
+
+    from ic_gvins_tpu.data import simulator as sim
+    from ic_gvins_tpu.ins import preintegration as jpre
+    from ic_gvins_tpu.solver import lm as jlm
+    from ic_gvins_tpu_torch.convert import to_numpy
+    from test_torch_solver import perturbed
+
+    win = perturbed(win)
+    traj = sim.car_trajectory()
+    imus = [sim.simulate_imu(traj, params, 5.0 + 0.4 * i, 0.4, 200.0) for i in range(2)]
+    imu = jax.tree.map(lambda *xs: jnp.stack(xs), *imus)
+    state0 = jax.tree.map(lambda x: x[:2], win.nodes)
+    state0 = state0._replace(ba=state0.ba + 1e-3)
+    want = jax.jit(jax.vmap(jpre.preintegrate, in_axes=(None, 0, 0)))(params, state0, imu)
+    jw, (j1, j2, jn) = jax.jit(lambda *a: jlm.optimize_impl(*a, iters=20))(win, prior, cfg, params)
+    return {"preint_case": {"imu": to_numpy(imu), "want": to_numpy(want)},
+            "optimized": {"window": to_numpy(jw), "stats1": to_numpy(j1),
+                          "stats2": to_numpy(j2), "n_culled": np.asarray(jn)}}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--tiny", action="store_true",
+                    help="the round of _tiny_problem()'s 6 x 16 window instead, into "
+                         "tests/fixtures/torch_tiny.npz")
+    args = ap.parse_args()
+    _jax()
+    import numpy as np
+
+    from __graft_entry__ import _tiny_problem
+    from ic_gvins_tpu_torch.convert import flatten
+
+    out_path = args.out or (TINY_OUT if args.tiny else DEFAULT_OUT)
+    if args.tiny:
+        win, prior, cfg, params = _tiny_problem()
+    else:
+        win, prior, cfg, params = _tiny_problem(n_nodes=N_NODES, n_landmarks=N_LANDMARKS)
+    imu = raw_imu(win.n_nodes - 1, params)
+    tree = round_tree(win, prior, cfg, params, imu)
+    if args.tiny:
+        tree.update(solver_cases(win, prior, cfg, params))
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    np.savez_compressed(out_path, **flatten(tree))
+    s1, s2 = tree["out"]["opt"]["stats1"], tree["out"]["opt"]["stats2"]
+    print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes); "
+          f"phase1 iters {int(s1['iters_run'])} accepted {int(s1['accepted'])}, "
+          f"phase2 iters {int(s2['iters_run'])} accepted {int(s2['accepted'])}, "
+          f"cost {float(s1['cost0']):.6g} -> {float(s2['cost1']):.6g}, "
+          f"triangulated {int(np.sum(tree['out']['tri']['ok']))}")
 
 
 if __name__ == "__main__":
