@@ -15,7 +15,8 @@ with ``EngineConfig()``, and the ``Estimator`` with the wheel odometer
 and its checkpoints; then the simulator and the two commands that run on
 it, ``run_sim`` and ``run_urban``; then the ``parallel/`` package (a
 batch of 32 windows, landmark shards, node chunks); then the engine's
-float32 mode on these paths. Phases:
+float32 mode on these paths; then the ``parallel/`` paths across
+``torch.distributed`` ranks. Phases:
 
 1. the card's name and power limit; build the CUDA kernel (nvcc, sm_90a);
 2. KLT kernel vs its plain PyTorch version at slice shapes (200 features)
@@ -89,15 +90,30 @@ float32 mode on these paths. Phases:
    beside float64 (stage ms, launches); (b) ``Estimator(EngineConfig(),
    dtype=torch.float32)`` on phase 5's streams against the JAX float32
    and float64 runs, its stage medians beside phase 5's; (c) ``run_kaist
-   --f32`` on phase 6's directory; (d) ``run_urban --f32`` on phase 8's
-   drive (no ATE bound: the JAX float32 replay diverges on this route);
+   --f32`` on phase 6's directory; (d) ``run_urban --f32`` on the first
+   45 s of phase 8's drive (no ATE bound: the JAX float32 replay diverges
+   on this route; cut from 90 s in depth to make room for phase 11);
    (e) ``optimize_batch`` of phase 9's 32 windows in float32 against each
-   one's float32 ``optimize``.
+   one's float32 ``optimize``;
+11. phase 9's paths across ``torch.distributed`` ranks (``parallel/``
+   with a distributed ``Mesh``): W = 2 and W = 4 processes, started with
+   the ``spawn`` method, joined by ``gloo``, every rank on the one card,
+   each running (a) ``optimize_sharded`` of phase 9's sequence 0 with 8
+   global landmark shards (8 / W a rank), (b) ``ba_nodes_solve`` at N =
+   256 with 8 chunks over the ranks, (c) ``optimize_batch`` of the 32
+   windows split over the ranks, (d) ``Estimator.set_mesh`` on phase 5's
+   first 8 s. Every rank's results must be bit for bit rank 0's; (a)-(c)
+   within 1e-10 m of phase 9's one-process runs with their decisions and
+   within 1e-8 m of JAX, (d) phase 5's decisions within phase 9 (b)'s
+   bounds. It prints each path's wall and all-reduces beside phase 9's
+   one-process time. (e) the same with ``nccl``, one rank per card, where
+   the machine shows as many cards as ranks; otherwise a line says it did
+   not run.
 
-Phases 3 to 10 run with the kernel's launch count set to 0 before each and
+Phases 3 to 11 run with the kernel's launch count set to 0 before each and
 read after it; the ``launches`` of the kernels line sums phases 3, 6, 8
-and 10 (c) and (d); phase 9 and phase 10 (a), (b) and (e) must launch it
-no time.
+and 10 (c) and (d); phase 9, phase 10 (a), (b) and (e) and phase 11 must
+launch it no time.
 Every phase raises on failure. Needs a CUDA device: without one it exits
 with code 1 and prints no result. Prints a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -137,6 +153,13 @@ BATCH_JAX = 4  # sequences 0..3 are held against the JAX optimize_batch
 SHARDS = 8  # landmark shards of phase 9's optimize_sharded
 SHARDED_S = 8.0  # s of phase 5's streams that phase 9 replays landmark-sharded
 BATCH_POS_ATOL = 1e-8  # m, a batch member against its own round
+DIST_WORLDS = (2, 4)  # ranks of phase 11
+DIST_TIMEOUT = 60.0  # s, the process group's bound on each collective
+DIST_SPAWN_TIMEOUT = 400.0  # s, one spawn of phase 11's ranks
+# across ranks against one process with the same global shard count: the
+# sums over the ranks round otherwise; against JAX, tests/test_multihost.py
+DIST_POS_ATOL = 1e-10  # m
+DIST_JAX_POS_ATOL = 1e-8  # m
 
 # Limits. KLT: the kernel sums the 441 window terms in another order than
 # the plain version (and may fuse multiply-adds), so points agree to
@@ -220,6 +243,9 @@ RUN_SIM_ATE = 0.3  # m
 URBAN_S = 90.0
 URBAN_OUTAGE = (60.0, 75.0)
 URBAN_CKPT = 60.0
+# phase 10 (d)'s float32 replay of that drive, cut in depth to its first
+# 45 s (before the outage) so that phase 11 fits in the smoke's time
+URBAN_F32_S = 45.0
 # its ATE (errors after 10 s): the port on the CPU 0.560 m rms, 2.33 m max;
 # the JAX runner on this file 0.530 / 2.58 m (stored beside it), on 300 s
 # of the same drive 0.306 / 2.58 m. Both have a start-up transient of ~2 m
@@ -412,12 +438,19 @@ def summarize(est):
     return out
 
 
-def trajectory_errors(traj_t, traj_p, s, t_min, atol_t=1e-9):
-    """Position errors of the trajectory entries at or after ``t_min``
-    against the scenario's 200 Hz truth; a float32 engine's node times lie
-    within its rounding (``atol_t``) of the grid."""
+def grid_index(traj_t, s, atol_t=1e-9):
+    """The samples of the scenario's 200 Hz truth grid at the trajectory's
+    node times; a float32 engine's node times lie within its rounding
+    (``atol_t``) of the grid."""
     idx = np.rint((traj_t - s["truth_t"][0]) * 200.0).astype(np.int64)
     check(np.all(np.abs(s["truth_t"][idx] - traj_t) < atol_t), "trajectory off the truth grid")
+    return idx
+
+
+def trajectory_errors(traj_t, traj_p, s, t_min, atol_t=1e-9):
+    """Position errors of the trajectory entries at or after ``t_min``
+    against the scenario's 200 Hz truth (``grid_index``)."""
+    idx = grid_index(traj_t, s, atol_t)
     sel = traj_t >= t_min
     return np.linalg.norm(traj_p[sel] - s["truth_p"][idx[sel]], axis=1)
 
@@ -883,6 +916,14 @@ def perturb_round(win, opt, b):
     return out
 
 
+def tensor_bits(tree):
+    """The bytes of every tensor in ``tree``, in order."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return [x.cpu().numpy().tobytes() for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
 def round_once(win, prior, cfg, params, imu):
     """Phase 4's keyframe round (preintegrate -> triangulate -> optimize ->
     marginalize) on the given inputs, each stage timed on a synchronized
@@ -1154,6 +1195,40 @@ def parallel_round(dev):
             to_torch(IntegrationParams, inp["params"], dev), fx)
 
 
+def batch6_inputs(fx, dev):
+    """The three 6 x 24 windows of ``tests/fixtures/torch_parallel.npz``'s
+    ``batch6`` (tests/test_sharding.py's), their priors, the configuration
+    and the parameters on ``dev``."""
+    from ic_gvins_tpu_torch.convert import to_torch, unflatten
+    from ic_gvins_tpu_torch.data.types import IntegrationParams
+    from ic_gvins_tpu_torch.solver.window import Prior, SolverConfig, Window
+
+    inp = unflatten(fx, "batch6/in/")
+    return ([to_torch(Window, inp[f"window{i}"], dev) for i in range(3)],
+            [to_torch(Prior, inp[f"prior{i}"], dev) for i in range(3)],
+            to_torch(SolverConfig, inp["cfg"], dev), to_torch(IntegrationParams, inp["params"], dev))
+
+
+def ba_problem(fx, name, n_chunks, sep_width, dev):
+    """A node-chunked BA problem of ``tests/fixtures/torch_parallel.npz``
+    (``ba32`` / ``ba256``) cut into ``n_chunks`` with a band of
+    ``sep_width`` on ``dev``: (problem, masked observations, parameters,
+    iterations)."""
+    from ic_gvins_tpu_torch.convert import to_torch, unflatten
+    from ic_gvins_tpu_torch.data.types import IntegrationParams, NavState
+    from ic_gvins_tpu_torch.ins.preintegration import PreintData
+    from ic_gvins_tpu_torch.parallel import ba_nodes
+
+    inp = unflatten(fx, f"{name}/in/")
+    ba, dropped = ba_nodes.build_nodes_ba(
+        to_torch(NavState, inp["nodes"], dev), to_torch(PreintData, inp["preint"], dev),
+        inp["gnss_p"], inp["gnss_std"], inp["gnss_valid"], inp["lm_invd"], inp["lm_ref"],
+        inp["obs_uv"], inp["obs_valid"], ext_p=np.zeros(3), ext_q=np.array([1.0, 0, 0, 0]),
+        reproj_std=1.5 / 500.0, n_chunks=n_chunks, stencil=int(inp["stencil"]),
+        sep_width=sep_width, device=dev)
+    return ba, dropped, to_torch(IntegrationParams, inp["params"], dev), int(inp["iters"])
+
+
 def phase_batch(dev):
     """Phase 9 (a): ``optimize_batch`` of BATCH sequences of the 24 x 192
     float64 window, ITERS iterations, against the port's own ``optimize``
@@ -1207,7 +1282,16 @@ def phase_batch(dev):
         f"{BATCH // 4} single rounds (profiled); busy share {busy_b:.4f} batched ({dev_b:.2f} "
         f"ms of device time in {wall_b:.2f} ms profiled), {busy_s:.4f} single ({dev_s:.2f} "
         f"in {wall_s:.2f} ms)")
-    return wins, prior, cfg, params, fx, dict(ms=ms_b, launches=n_b, busy=busy_b, single_ms=ms_s)
+    return wins, prior, cfg, params, fx, dict(
+        ms=ms_b, launches=n_b, busy=busy_b, single_ms=ms_s,
+        result={"p": to_np(out.nodes.p), "stats": np.stack([to_np(x) for x in (ncull, iters, acc)])})
+
+
+def round_decisions(stats) -> np.ndarray:
+    """A round's decisions: accepted steps and iterations of both phases,
+    and the culled observations."""
+    s1, s2, n_culled = stats
+    return np.array([s1.accepted, s2.accepted, s1.iters_run, s2.iters_run, int(n_culled)])
 
 
 def phase_sharded(dev, wins, prior, cfg, params, phase5):
@@ -1251,28 +1335,22 @@ def phase_sharded(dev, wins, prior, cfg, params, phase5):
         f"(cut from {float(s5['imu_t'][-1]):.0f} s): {n_ev} events, {n_rounds} rounds with "
         f"phase 5's events, node times, keyframes and LM steps; trajectory {dp:.3g} m, "
         f"{dq:.3g} rad from phase 5's; {ms_e / 1e3:.1f} s of wall")
+    return {"round": {"p": to_np(out.nodes.p), "obs_valid": to_np(out.obs_valid),
+                      "decisions": round_decisions((s1, s2, ns)), "ms": ms_s},
+            "estimator": {"want": want, "got": got, "ms": ms_e}}
 
 
 def phase_ba_nodes(dev, fx):
     """Phase 9 (c): ``ba_nodes_solve`` at tests/test_ba_nodes.py's largest
     shape (N = 256 nodes, 8 chunks, a band of 8, landmarks across every
     cut) against the one-chunk solve and the JAX solves in the fixture."""
-    from ic_gvins_tpu_torch.convert import to_torch, unflatten
-    from ic_gvins_tpu_torch.data.types import IntegrationParams, NavState
-    from ic_gvins_tpu_torch.ins.preintegration import PreintData
+    from ic_gvins_tpu_torch.convert import unflatten
     from ic_gvins_tpu_torch.parallel import Mesh, ba_nodes
 
-    inp = unflatten(fx, "ba256/in/")
-    params = to_torch(IntegrationParams, inp["params"], dev)
-    band, iters = int(inp["sep_width"]), int(inp["iters"])
+    band = int(fx["ba256/in/sep_width"])
     sols = {}
     for n, b in ((8, band), (1, 1)):
-        ba, dropped = ba_nodes.build_nodes_ba(
-            to_torch(NavState, inp["nodes"], dev), to_torch(PreintData, inp["preint"], dev),
-            inp["gnss_p"], inp["gnss_std"], inp["gnss_valid"], inp["lm_invd"], inp["lm_ref"],
-            inp["obs_uv"], inp["obs_valid"], ext_p=np.zeros(3), ext_q=np.array([1.0, 0, 0, 0]),
-            reproj_std=1.5 / 500.0, n_chunks=n, stencil=int(inp["stencil"]), sep_width=b,
-            device=dev)
+        ba, dropped, params, iters = ba_problem(fx, "ba256", n, b, dev)
         check(dropped == 0, f"{dropped} observations masked with {n} chunks")
         solve = lambda: ba_nodes.ba_nodes_solve(ba, params, Mesh({"nodes": n}, device=dev),  # noqa: E731
                                                 iters=iters, sep_width=b)
@@ -1298,6 +1376,410 @@ def phase_ba_nodes(dev, fx):
         f"chunk positions {d['p']:.3g} m, velocities {d['v']:.3g}, inverse depths "
         f"{d['invd']:.3g}; vs JAX {max(errs):.3g} relative; {ms8:.2f} ms per solve with 8 "
         f"chunks, {ms1:.2f} ms with one")
+    return {"p": to_np(o8.nodes.p), "lm_invdepth": to_np(o8.lm_invdepth),
+            "decisions": np.array([int(nacc), int(it)]), "ms": ms8}
+
+
+# ---------------------------------------------------------------------------
+# Ranks of torch.distributed (phase 11; tests/test_torch_distributed.py)
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_timed(fn, dev, mesh):
+    """(fn's result, wall ms on a clock synchronized with ``dev``, the
+    all-reduces ``mesh`` made in it)."""
+    import torch
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    n0 = mesh.all_reduces
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3, mesh.all_reduces - n0
+
+
+def round_sequence(b, dev, dtype=None):
+    """Sequence ``b`` of phase 9's batch (``perturb_round`` of the 24 x 192
+    round's window) with the shared prior, configuration and parameters on
+    ``dev``, in ``dtype`` (the fixture's float64 when None)."""
+    from ic_gvins_tpu_torch.convert import cast, to_torch, unflatten
+    from ic_gvins_tpu_torch.data.types import IntegrationParams
+    from ic_gvins_tpu_torch.solver.window import Prior, SolverConfig, Window
+
+    inp = unflatten(dict(np.load(PARALLEL_FIXTURE)), "round/in/")
+    out = (to_torch(Window, perturb_round(inp["window"], inp["opt"], b), dev),
+           to_torch(Prior, inp["prior"], dev), to_torch(SolverConfig, inp["cfg"], dev),
+           to_torch(IntegrationParams, inp["params"], dev))
+    return out if dtype is None else tuple(cast(x, dtype) for x in out)
+
+
+def round_result(window, stats) -> dict:
+    """A landmark-sharded round's whole window and its decisions, as numpy."""
+    from ic_gvins_tpu_torch.convert import to_numpy
+
+    return {"window": to_numpy(window), "decisions": round_decisions(stats),
+            "cost1": to_np(stats[1].cost1)}
+
+
+def dist_collectives(dev):
+    """psum / pmax / psum_packed / psum_rank0 (alone and with a max) /
+    assemble over the ranks,
+    two local shards each, on integer-valued data (exact in any order):
+    each rank's results and the global input."""
+    import torch
+
+    from ic_gvins_tpu_torch.parallel import Mesh, assemble, pmax, psum, psum_packed, psum_rank0
+
+    mesh = Mesh({"lm": 2 * _world()}, device=dev)
+    k, first = mesh.local("lm"), mesh.first("lm")
+    g = np.random.default_rng(3)
+    x = torch.as_tensor(g.integers(-50, 50, (mesh.shape["lm"], 3, 4)).astype(np.float64), device=dev)
+    rows = torch.as_tensor(g.integers(0, 9, (4 * mesh.world, 2)), device=dev)
+    mine = x[first:first + k]
+    packed = psum_packed([mine, 2 * mine[:, 0]], mesh)
+    per = rows.shape[0] // mesh.world
+    whole = assemble([(rows[mesh.rank * per:(mesh.rank + 1) * per], mesh.rank * per, rows.shape[0]),
+                      (x[0] + mesh.rank, None, 0), (mine > 0, first, mesh.shape["lm"])], mesh)
+    return {"x": x, "rows": rows, "psum": psum(mine, mesh), "pmax": pmax(mine, mesh),
+            "packed0": packed[0], "packed1": packed[1],
+            "rank0": psum_rank0(mine[:, 0, 0], torch.tensor(0.5, dtype=x.dtype, device=dev) + mesh.rank,
+                                mesh),
+            "rank0_max": torch.stack(psum_rank0(
+                mine[:, 0, 0], x[0, 0, 0], mesh, also_max=x[first:first + k, 1, 1].amax())),
+            "rows_whole": whole[0], "rep_whole": whole[1], "mask_whole": whole[2],
+            "all_reduces": mesh.all_reduces}
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size()
+
+
+def dist_round(dev, b=0, dtype="float64"):
+    """``optimize_sharded`` with SHARDS global landmark shards of phase 9's
+    sequence ``b`` in ``dtype``, ITERS iterations."""
+    import torch
+
+    from ic_gvins_tpu_torch.parallel import Mesh
+    from ic_gvins_tpu_torch.parallel.lm_sharded import optimize_sharded
+
+    win, prior, cfg, params = round_sequence(b, dev, getattr(torch, dtype))
+    mesh = Mesh({"lm": SHARDS}, device=dev)
+    (out, stats), ms, n = rank_timed(
+        lambda: optimize_sharded(win, prior, cfg, params, mesh, iters=ITERS), dev, mesh)
+    return {**round_result(out, stats), "time": {"ms": ms, "all_reduces": n}}
+
+
+def dist_gn_step(dev):
+    """``sharded_gn_step`` with SHARDS landmark shards on ``batch6``'s
+    second window."""
+    from ic_gvins_tpu_torch.convert import to_numpy
+    from ic_gvins_tpu_torch.parallel import Mesh, schur
+
+    wins, prs, cfg, params = batch6_inputs(dict(np.load(PARALLEL_FIXTURE)), dev)
+    mesh = Mesh({"lm": SHARDS}, device=dev)
+    return {"window": to_numpy(schur.sharded_gn_step(wins[1], prs[1], cfg, params, mesh,
+                                                     lam=1e-4)),
+            "all_reduces": mesh.all_reduces}
+
+
+def dist_ba(dev, name="ba32"):
+    """``ba_nodes_solve`` of a fixture problem cut into SHARDS chunks
+    (``ba32``: a band of 1; ``ba256``: a band of 8), the chunks over the
+    ranks."""
+    from ic_gvins_tpu_torch.parallel import Mesh, ba_nodes
+
+    fx = dict(np.load(PARALLEL_FIXTURE))
+    band = int(fx[f"{name}/in/sep_width"])
+    ba, _, params, iters = ba_problem(fx, name, SHARDS, band, dev)
+    mesh = Mesh({"nodes": SHARDS}, device=dev)
+    (out, (c0, c1, nacc, it)), ms, n = rank_timed(
+        lambda: ba_nodes.ba_nodes_solve(ba, params, mesh, iters=iters, sep_width=band), dev, mesh)
+    return {"nodes": {k: to_np(getattr(out.nodes, k)) for k in ("p", "v", "q")},
+            "lm_invdepth": to_np(out.lm_invdepth), "decisions": np.array([nacc, it]),
+            "cost": np.array([float(c0), float(c1)]), "time": {"ms": ms, "all_reduces": n}}
+
+
+def dist_batch(dev, source="batch6"):
+    """``optimize_batch`` of ``batch6``'s three windows (8 iterations) or of
+    phase 9's BATCH sequences (ITERS), split over the ranks by
+    ``shard_batch`` and made whole by ``gather_batch``."""
+    from ic_gvins_tpu_torch.parallel import Mesh, multi_seq
+
+    if source == "batch6":
+        wins, prs, cfg, params = batch6_inputs(dict(np.load(PARALLEL_FIXTURE)), dev)
+        iters = 8
+    else:
+        wins, prior, cfg, params, _ = parallel_round(dev)
+        prs, iters = [prior] * len(wins), ITERS
+    mesh = Mesh({"dp": _world()}, device=dev)
+    mine, mine_pr = multi_seq.shard_batch(multi_seq.stack_windows(wins),
+                                          multi_seq.stack_priors(prs), mesh)
+
+    def run():
+        out, stats = multi_seq.optimize_batch(mine, mine_pr, cfg, params, iters=iters)
+        return multi_seq.gather_batch((out.nodes, stats), len(wins), mesh)
+
+    (nodes, stats), ms, n = rank_timed(run, dev, mesh)
+    return {"nodes": {k: to_np(getattr(nodes, k)) for k in ("p", "v", "q")},
+            "stats": np.stack([to_np(x) for x in stats]),
+            "rank": {"n_local": np.int64(mine.nodes.p.shape[0])},
+            "time": {"ms": ms, "all_reduces": n}}
+
+
+def estimator_scenario(name):
+    """The streams ``Estimator.set_mesh`` runs on: the small fixture's
+    ``gvins`` scenario (``small``), or phase 5's streams cut to their
+    first SHARDED_S s (``defaults``)."""
+    if name == "small":
+        fx = dict(np.load(os.path.join(ROOT, "tests", "fixtures", "torch_estimator_small.npz")))
+        return scenario(fx, "gvins")
+    fx = dict(np.load(ESTIMATOR_FIXTURE))
+    return head({**scenario(fx, "defaults"),
+                 "cfg_json": scenario(fx, "defaults_native")["cfg_json"]}, SHARDED_S)
+
+
+def dist_estimator(dev, name="small"):
+    """``Estimator.set_mesh`` with SHARDS global landmark shards over the
+    ranks, every rank on the same streams: its feed log and summary."""
+    from ic_gvins_tpu_torch.parallel import Mesh
+
+    mesh = Mesh({"lm": SHARDS}, device=dev)
+    (_, got), ms, n = rank_timed(lambda: run_estimator(estimator_scenario(name), dev, mesh=mesh),
+                                 dev, mesh)
+    return {"got": got, "time": {"ms": ms, "all_reduces": n}}
+
+
+def dist_guards(dev):
+    """What a rank refuses: a shard count the world does not divide, and a
+    window, problem or estimator on another device than its mesh's (the
+    mesh here on ``meta``). Each entry is 1 where it raised."""
+    from ic_gvins_tpu_torch.engine.config import EngineConfig
+    from ic_gvins_tpu_torch.engine.estimator import Estimator
+    from ic_gvins_tpu_torch.parallel import Mesh, ba_nodes, lm_sharded
+
+    def raises(fn):
+        try:
+            fn()
+        except ValueError:
+            return 1
+        return 0
+
+    fx = dict(np.load(PARALLEL_FIXTURE))
+    wins, prs, cfg, params = batch6_inputs(fx, dev)
+    ba, _, bparams, _ = ba_problem(fx, "ba32", SHARDS, 1, dev)
+    other = Mesh({"lm": SHARDS, "nodes": SHARDS}, device="meta")
+    est = Estimator(EngineConfig(max_nodes=4, max_landmarks=8), device=dev)
+    return {"odd_count": raises(lambda: Mesh({"lm": 2 * _world() + 1}, device=dev)),
+            "round_device": raises(lambda: lm_sharded.optimize_sharded(
+                wins[0], prs[0], cfg, params, other)),
+            "ba_device": raises(lambda: ba_nodes.ba_nodes_solve(ba, bparams, other, iters=1)),
+            "estimator_device": raises(lambda: est.set_mesh(other))}
+
+
+def dist_phase11(dev):
+    """Phase 11 on one rank, at full width: (a) the sharded round of
+    phase 9's sequence 0, (b) the node-chunked BA at N = 256, (c) the
+    batch of BATCH windows, each after a warm-up call, and (d)
+    ``Estimator.set_mesh`` on phase 5's first SHARDED_S s."""
+    from ic_gvins_tpu_torch.vision import klt_cuda
+
+    klt_cuda.lk_track_bidirectional.launches = 0
+    out = {}
+    for key, fn in (("a", lambda: dist_round(dev)), ("b", lambda: dist_ba(dev, "ba256")),
+                    ("c", lambda: dist_batch(dev, "round"))):
+        fn()  # warm: the solver libraries' first calls on this rank
+        out[key] = fn()
+    out["d"] = dist_estimator(dev, "defaults")
+    out["klt_launches"] = np.int64(klt_cuda.lk_track_bidirectional.launches)
+    return out
+
+
+DIST_CASES = {"collectives": dist_collectives, "round": dist_round, "gn_step": dist_gn_step,
+              "ba": dist_ba, "batch": dist_batch, "estimator": dist_estimator,
+              "guards": dist_guards, "phase11": dist_phase11}
+
+
+def dist_rank(rank, world, init, backend, device, case, kwargs, out_path, threads=None):
+    """One rank of a spawned run: join the process group, run
+    ``DIST_CASES[case](device, **kwargs)`` and write its results to
+    ``out_path`` (npz)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from ic_gvins_tpu_torch.convert import flatten
+    from ic_gvins_tpu_torch.parallel import init_distributed, shutdown_distributed
+
+    if threads:
+        torch.set_num_threads(threads)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_distributed(backend, init, world, rank, timeout=DIST_TIMEOUT)
+    try:
+        out = DIST_CASES[case](dev, **kwargs)
+    finally:
+        shutdown_distributed()
+    np.savez(out_path, **flatten(_numpy_tree(out)))
+
+
+def _numpy_tree(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy() if torch.is_tensor(tree) else np.asarray(tree)
+
+
+def spawn_ranks(world, case, devices, out_dir, kwargs=None, backend="gloo",
+                timeout=DIST_SPAWN_TIMEOUT, threads=None, meanwhile=None):
+    """Run ``case`` on ``world`` ranks, processes started with the
+    ``spawn`` method (the caller may have initialized CUDA), rank r on
+    ``devices[r]``, joined by a process group on a free local port, and
+    ``meanwhile()`` here while they run. Kills them all when they have not
+    finished in ``timeout`` s, and raises then or when one failed. Returns
+    (each rank's results as nested dicts of numpy arrays, what
+    ``meanwhile`` returned)."""
+    import multiprocessing as mp
+
+    from ic_gvins_tpu_torch.convert import unflatten
+
+    ctx = mp.get_context("spawn")
+    init = f"tcp://127.0.0.1:{free_port()}"
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f"{case}_w{world}_r{r}.npz") for r in range(world)]
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+    procs = [ctx.Process(target=dist_rank, args=(r, world, init, backend, str(devices[r]), case,
+                                                 kwargs or {}, paths[r], threads))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    ref = None
+    try:
+        if meanwhile is not None:
+            ref = meanwhile()
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+    check(not hung, f"{case} on {world} ranks ({backend}) did not end within {timeout:.0f} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"{case} on {world} ranks ({backend}): exit codes {codes}")
+    return [unflatten(dict(np.load(p))) for p in paths], ref
+
+
+def same_bits(results) -> bool:
+    """Are every rank's results bit for bit rank 0's (its timings and its
+    own share, under ``time`` and ``rank``, aside)?"""
+    from ic_gvins_tpu_torch.convert import flatten
+
+    flat = [{k: v for k, v in flatten(r).items() if not {"time", "rank"} & set(k.split("/"))} for r in results]
+    return all(f.keys() == flat[0].keys()
+               and all(f[k].dtype == flat[0][k].dtype and f[k].tobytes() == flat[0][k].tobytes()
+                       for k in f) for f in flat[1:])
+
+
+def max_abs(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def phase_distributed(dev, ref9, fx):
+    """Phase 11: phase 9's paths across W = 2 and 4 ranks of
+    ``torch.distributed`` (``gloo``, every rank on ``dev``), each rank
+    running ``dist_phase11``: every rank's results bit for bit rank 0's,
+    within DIST_POS_ATOL of phase 9's one-process runs with the same global
+    shard count and with their decisions, within DIST_JAX_POS_ATOL of JAX,
+    and the estimator within phase 9 (b)'s bounds of phase 5; then the
+    same with ``nccl``, one rank per card, where the machine has the
+    cards."""
+    import torch
+
+    from ic_gvins_tpu_torch.convert import unflatten
+
+    out_dir = os.path.join(ROOT, "build", "phase11")
+    jx_round = unflatten(fx, "round/sharded/")
+    jx_ba = unflatten(fx, "ba256/chunks8/")
+    cards = torch.cuda.device_count()
+    runs = [("gloo", w, [dev] * w) for w in DIST_WORLDS]
+    runs += [("nccl", w, [torch.device("cuda", r) for r in range(w)])
+             for w in DIST_WORLDS if w <= cards]
+    for backend, world, devices in runs:
+        t0 = time.perf_counter()
+        res, _ = spawn_ranks(world, "phase11", devices, out_dir, backend=backend,
+                          threads=max(1, (os.cpu_count() or world) // world))
+        wall = time.perf_counter() - t0
+        tag = f"phase 11 {backend}, {world} ranks"
+        check(same_bits(res), f"{tag}: the ranks' results differ from rank 0's")
+        r0 = res[0]
+        check(all(int(r["klt_launches"]) == 0 for r in res), f"{tag} launched the KLT kernel")
+        # (a) the landmark-sharded round
+        a, a9 = r0["a"], ref9["round"]
+        check(np.array_equal(a["decisions"], a9["decisions"])
+              and np.array_equal(a["window"]["obs_valid"], a9["obs_valid"]),
+              f"{tag} (a): decisions or culls differ from one process")
+        da = max_abs(a["window"]["nodes"]["p"], a9["p"])
+        dja = max_abs(a["window"]["nodes"]["p"], jx_round["window"]["nodes"]["p"])
+        check(da <= DIST_POS_ATOL, f"{tag} (a): {da:.3g} m from one process")
+        check(dja <= DIST_JAX_POS_ATOL and int(jx_round["n_culled"]) == int(a["decisions"][4]),
+              f"{tag} (a): {dja:.3g} m from JAX or other culls")
+        # (b) the node-chunked BA
+        b, b9 = r0["b"], ref9["ba"]
+        check(np.array_equal(b["decisions"], b9["decisions"]),
+              f"{tag} (b): accepted steps or iterations differ from one process")
+        db = max_abs(b["nodes"]["p"], b9["p"])
+        djb = max_abs(b["nodes"]["p"], jx_ba["nodes"]["p"])
+        check(db <= DIST_POS_ATOL, f"{tag} (b): {db:.3g} m from one process")
+        check(djb <= DIST_JAX_POS_ATOL
+              and int(b["decisions"][0]) == int(jx_ba["stats"]["accepted"]),
+              f"{tag} (b): {djb:.3g} m from JAX or other accepted steps")
+        # (c) the batch
+        c, c9 = r0["c"], ref9["batch"]
+        check(np.array_equal(c["stats"][2:], c9["stats"]),
+              f"{tag} (c): culls, iterations or accepted steps differ from one process")
+        dc = max_abs(c["nodes"]["p"], c9["p"])
+        check(dc <= DIST_POS_ATOL, f"{tag} (c): {dc:.3g} m from one process")
+        # (d) the estimator
+        d, d9 = r0["d"], ref9["estimator"]
+        dp, dq = compare_estimator(d["got"], d9["want"], CARD_TRAJ_ATT_ATOL)
+        t = {k: r0[k]["time"] for k in "abcd"}
+        slow = {k: max(float(r[k]["time"]["ms"]) for r in res) for k in "abcd"}
+        log(f"{tag} ({' '.join(str(x) for x in devices)}): every rank's results bit for bit "
+            f"rank 0's; (a) optimize_sharded ({SHARDS} shards, {SHARDS // world} a rank): "
+            f"decisions {a['decisions'].tolist()} as one process, positions {da:.3g} m from "
+            f"one process, {dja:.3g} m from JAX; (b) ba_nodes_solve (256 nodes, {SHARDS} "
+            f"chunks): {db:.3g} m from one process, {djb:.3g} m from JAX; (c) optimize_batch "
+            f"({BATCH} windows, {int(c['rank']['n_local'])} on rank 0): {dc:.3g} m from one process, "
+            f"the same stops and culls; (d) Estimator.set_mesh on phase 5's first "
+            f"{SHARDED_S:.0f} s: phase 5's decisions, trajectory {dp:.3g} m, {dq:.3g} rad")
+        log(f"{tag} walls, rank 0 (slowest rank) beside one process (phase 9), ms: "
+            + "; ".join(f"({k}) {float(t[k]['ms']):.2f} ({slow[k]:.2f}) with "
+                        f"{int(t[k]['all_reduces'])} all-reduces, one process "
+                        f"{float(ref9[n]['ms']):.2f}"
+                        for k, n in zip("abcd", ("round", "ba", "batch", "estimator")))
+            + f"; spawn to end {wall:.1f} s")
+    if not any(b == "nccl" for b, _, _ in runs):
+        log(f"phase 11 (e) nccl: not run ({cards} card(s) visible)")
+    else:
+        for w in DIST_WORLDS:
+            if w > cards:
+                log(f"phase 11 (e) nccl, {w} ranks: not run ({cards} card(s) visible)")
 
 
 @contextmanager
@@ -1767,10 +2249,15 @@ def phase_f32_modules(dev):
     rows = {}
     for dtype in (torch.float64, torch.float32):
         args = [cast(x, dtype) for x in inputs]
-        round_once(*args)  # warms the solver libraries
-        (_, _, _, w_opt, (s1, s2, nc), w_sl, pr), ms = round_once(*args)
+        first, _ = round_once(*args)  # also warms the solver libraries
+        out, ms = round_once(*args)
+        _, _, _, w_opt, (s1, s2, nc), w_sl, pr = out
         _, launches, dev_ms, wall, busy = profiled(lambda: round_once(*args))
         check(w_opt.nodes.p.dtype == pr.H.dtype == dtype, "the round changed its dtype")
+        # the card's sums run in a fixed order (solver/assembly.index_sum_):
+        # the same round twice gives the same bits
+        check(tensor_bits(first) == tensor_bits(out),
+              f"two {str(dtype)[6:]} rounds on the same inputs differ")
         check(all(bool(torch.isfinite(x).all()) for x in (w_opt.nodes.p, pr.H)),
               "the round is not finite")
         dp = float(np.abs(w_opt.nodes.p.double().cpu().numpy() - ref["opt"]["nodes"]["p"]).max())
@@ -1779,7 +2266,8 @@ def phase_f32_modules(dev):
         log(f"phase 10 (a) round in {str(dtype)[6:]} (24 x 192, {ITERS} iters): " + ", ".join(
             f"{k} {v:.2f}" for k, v in ms.items()) + f" ms, round {sum(ms.values()):.2f} ms; "
             f"{launches} launches, busy {busy:.4f} (profiled); LM iterations {iters}, culled "
-            f"{nc}; positions {dp:.3g} m from JAX float64's optimum")
+            f"{nc}; positions {dp:.3g} m from JAX float64's optimum; a second round on "
+            f"the same inputs gives the same bits")
     check(rows[torch.float32][3] <= F32_ROUND_POS_ATOL,
           f"the float32 round's optimum is more than {F32_ROUND_POS_ATOL} m from JAX's")
 
@@ -1800,9 +2288,13 @@ def phase_estimator_f32(dev, phase5):
           "the float32 Estimator came back in another dtype")
     check(np.isfinite(got["traj_p"]).all(), "the float32 Estimator's trajectory is not finite")
     part = first_parting(got, ref)
-    # the entries at JAX float32's node times (the same times unless a
-    # keyframe decision parts)
-    _, ig, ir = np.intersect1d(got["traj_t"], ref["traj_t"], return_indices=True)
+    # the entries at JAX float32's node times (the same frames unless a
+    # keyframe decision parts), as samples of the truth grid: a float32
+    # node time is its predecessor's plus its interval's IMU steps, so the
+    # same frame's time differs in its last bits where the node chains
+    # before it differ
+    _, ig, ir = np.intersect1d(grid_index(got["traj_t"], s, F32_TIME_ATOL),
+                               grid_index(ref["traj_t"], s, F32_TIME_ATOL), return_indices=True)
     n, n_ref = len(ig), len(ref["traj_t"])
     dist = float(np.max(np.linalg.norm(got["traj_p"][ig] - ref["traj_p"][ir], axis=1)))
     e = trajectory_errors(got["traj_t"], got["traj_p"], s, 5.0, atol_t=F32_TIME_ATOL)
@@ -1853,11 +2345,13 @@ def phase_kaist_f32(dev, work, seq, line6):
 
 
 def phase_urban_f32(dev, work):
-    """Phase 10 (d): ``run_urban --f32`` on the JAX runner's 90 s drive
-    (phase 8 (d)'s file and flags): no NaN, re-centered, a PSD prior, one
-    KLT launch per tracked frame; its ATE beside the JAX float64 and
-    float32 replays of the file (the JAX float32 one diverges on this
-    route, so no ATE bound is set). Returns its KLT launches."""
+    """Phase 10 (d): ``run_urban --f32`` on the first URBAN_F32_S s of the
+    JAX runner's 90 s drive (phase 8 (d)'s file and flags): no NaN,
+    re-centered, a PSD prior, one KLT launch per tracked frame; its ATE
+    beside the JAX float64 and float32 replays of the whole file (the JAX
+    float32 one diverges on this route, so no ATE bound is set), and where
+    it parts from the JAX float32 replay within its span. Returns its KLT
+    launches."""
     import torch
 
     from ic_gvins_tpu_torch.tools import run_urban
@@ -1868,10 +2362,14 @@ def phase_urban_f32(dev, work):
     sensors = os.path.join(out, "sensors.npz")
     with np.load(URBAN_FIXTURE) as z:
         ate64 = float(z["jax/ate_rmse_m"])
-        np.savez(sensors, **{k: z[k] for k in z.files if not k.startswith("jax/")})
+        # the replay runs the whole file: its streams cut to the first URBAN_F32_S s
+        keep = {"imu": z["imu_time"] <= URBAN_F32_S, "gnss": z["gnss_time"] <= URBAN_F32_S,
+                "frame": z["frame_times"] <= URBAN_F32_S}
+        np.savez(sensors, **{k: z[k][keep[k.split("_")[0]]] if k.split("_")[0] in keep else z[k]
+                             for k in z.files if not k.startswith("jax/")})
     fx = f32_fixture()
     j32 = {k[len("urban32/"):]: v for k, v in fx.items() if k.startswith("urban32/")}
-    argv = ["--f32", "--duration", str(URBAN_S), "--outages", *map(str, URBAN_OUTAGE),
+    argv = ["--f32", "--duration", str(URBAN_F32_S), "--outages", *map(str, URBAN_OUTAGE),
             "--checkpoint-every", str(URBAN_CKPT), "--sensors", sensors, "--out", out,
             "--device", str(dev)]
     klt_cuda.lk_track_bidirectional.launches = 0
@@ -1889,15 +2387,16 @@ def phase_urban_f32(dev, work):
         if line.startswith('{"sim_t"'):
             log("phase 10 (d) run_urban --f32 progress: " + line)
     with np.load(os.path.join(out, "trajectory.npz")) as z:
-        parting = parting_line(z["est_t"], z["est_p"], j32["est_t"], j32["est_p"])
+        span = j32["est_t"] <= z["est_t"][-1] + 1e-6  # the JAX replay over this run's span
+        parting = parting_line(z["est_t"], z["est_p"], j32["est_t"][span], j32["est_p"][span])
         finite = bool(np.isfinite(z["est_p"]).all())
-    log(f"phase 10 (d) run_urban --f32 {URBAN_S:.0f} s: mode {res['mode']}, final state "
+    log(f"phase 10 (d) run_urban --f32 {URBAN_F32_S:.0f} s: mode {res['mode']}, final state "
         f"{est.state}, {len(est.stats)} rounds, n_recenters {res['n_recenters']} (JAX float32 "
         f"{int(j32['n_recenters'])}), prior eig min {res['prior_eig_min']:.3g} rank "
         f"{res['prior_rank']}; KLT launches {launches} for {tracked} tracked frames; ATE rmse "
         f"{res['ate_rmse_m']:.4f} m, max {res['ate_max_m']:.4f} m (JAX float64 {ate64:.4f}, "
         f"JAX float32 {float(j32['ate_rmse_m']):.4f} rmse / {float(j32['ate_max_m']):.4f} max "
-        f"over its {float(j32['duration']):.0f} s); " + stage_line(est, wall, URBAN_S))
+        f"over its {float(j32['duration']):.0f} s); " + stage_line(est, wall, URBAN_F32_S))
     log("phase 10 (d) against the JAX float32 replay: " + parting)
     check(res["mode"] == "f32" and est.window.nodes.p.dtype == torch.float32,
           "run_urban --f32 did not run in float32")
@@ -1989,8 +2488,8 @@ def main():
         klt_cuda.lk_track_bidirectional.launches = 0
         t9 = time.perf_counter()
         wins, prior, cfg, params, fx, batch64 = phase_batch(dev)
-        phase_sharded(dev, wins, prior, cfg, params, phase5)
-        phase_ba_nodes(dev, fx)
+        sharded9 = phase_sharded(dev, wins, prior, cfg, params, phase5)
+        ba9 = phase_ba_nodes(dev, fx)
         check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 9 launched the KLT kernel")
         log(f"phase 9 wall: {time.perf_counter() - t9:.1f} s")
         # phase 10: the float32 engine mode; (c) and (d) zero and read the
@@ -2007,6 +2506,13 @@ def main():
         phase_batch_f32(dev, wins, prior, cfg, params, batch64)
         check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 10 (e) launched the KLT kernel")
         log(f"phase 10 wall: {time.perf_counter() - t10:.1f} s")
+        # phase 11: phase 9's paths across torch.distributed ranks
+        klt_cuda.lk_track_bidirectional.launches = 0
+        t11 = time.perf_counter()
+        phase_distributed(dev, {**sharded9, "ba": ba9,
+                                "batch": {**batch64["result"], "ms": batch64["ms"]}}, fx)
+        check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 11 launched the KLT kernel")
+        log(f"phase 11 wall: {time.perf_counter() - t11:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 8 klt at the urban replay's shape (320x240, 120 feature slots, 4 images): "

@@ -27,7 +27,11 @@ scale. ``save_checkpoint`` / ``load_checkpoint`` use the JAX package's
 pickle layout, so either package resumes the other's checkpoints.
 
 ``set_mesh`` runs the rounds landmark-sharded
-(``parallel/lm_sharded.py``).
+(``parallel/lm_sharded.py``), on one card or across ``torch.distributed``
+ranks: every rank runs the same estimator on the same streams, each round
+leaves the whole window, bit for bit the same, on every rank, and the
+rest (culling, marginalization, the host's landmark slots) goes on as in
+the single path.
 
 ``dtype`` (float64 by default, or float32) is the type of every device
 tensor: the window, the prior, the integration parameters, the solver
@@ -530,12 +534,14 @@ class Estimator:
         """Run the optimization rounds landmark-sharded over ``mesh``
         (``parallel.Mesh``, axis "lm"; ``parallel/lm_sharded.optimize_sharded``:
         the same two-phase LM, the landmark sums per shard, then over the
-        shards). ``None`` restores the single path."""
+        shards and the ranks). A distributed mesh holds this rank's device,
+        which must be the estimator's. ``None`` restores the single path."""
         if mesh is not None:
             if self.cfg.max_landmarks % mesh.shape["lm"] != 0:
                 raise ValueError("max_landmarks must divide the mesh size")
             if mesh.device != self.device:
-                raise ValueError(f"the mesh is on {mesh.device}, the estimator on {self.device}")
+                raise ValueError(f"rank {mesh.rank}'s mesh is on {mesh.device}, the estimator "
+                                 f"on {self.device}")
         self.mesh = mesh
 
     # ------------------------------------------------------------------

@@ -15,10 +15,14 @@ the chunk's interior. Each chunk
   dimensions onto its two bands,
 
 the S * B * 15-dimensional separator system is summed over the chunks
-(the JAX ``psum``) and solved once, and the interior and landmark
-back-substitutions stay per chunk. The JAX package puts one chunk on each
-device of the mesh axis ``"nodes"``; here the S chunks are a leading
-tensor axis on one card, every step batched over it.
+(the JAX ``psum``) and solved on every rank, and the interior and
+landmark back-substitutions stay per chunk. The JAX package puts one
+chunk on each device of the mesh axis ``"nodes"``; here each rank holds
+``mesh.local("nodes")`` chunks as a leading tensor axis, every step
+batched over it, and the sums run over the rank's chunks, then over the
+ranks. The node step is put together as JAX does it: each rank's chunks
+give their interior rows, one collective joins them, and the separator
+bands come from the separator solve.
 
 Every factor's nodes must lie inside one chunk's local node set. The
 preintegration chain always does. A landmark lands in the chunk of its
@@ -39,11 +43,15 @@ from ..device import resolve_device
 from ..factors.manifold import node_boxplus
 from ..factors.residuals import gnss_residual_jac, huber_weight, reprojection_residual_jac
 from ..ins.preintegration import PreintData, preint_residual_jac, sqrt_information
-from ..solver.assembly import huber_rho
-from . import psum
+from ..solver.assembly import huber_rho, index_sum_
+from . import assemble, psum, psum_packed
 
 AXIS = "nodes"
 NODE_DOF = 15
+# the NodesBA fields with a leading chunk axis [S], the ones a rank holds a
+# slice of
+CHUNK_FIELDS = ("preint", "preint_valid", "gnss_p", "gnss_std", "gnss_valid", "lm_invdepth",
+                "lm_ref_local", "lm_valid", "obs_node_local", "obs_uv", "obs_ref_uv", "obs_valid")
 
 
 class NodesBA(NamedTuple):
@@ -203,31 +211,33 @@ def build_nodes_ba(
 # ---------------------------------------------------------------------------
 
 
-def local_node_index(S: int, C: int, B: int, device=None):
-    """Global node index [S, C + B] of each chunk's local node set [cC - B,
-    (c + 1)C) and its mask: chunk 0 has no previous band, and its locals
-    0..B-1 are masked dummies that repeat node 0 (zeros would give NaNs in
-    the factor math before the mask applies)."""
-    g = (torch.arange(S, device=device)[:, None] * C - B
+def local_node_index(S: int, C: int, B: int, device=None, first: int = 0):
+    """Global node index [S, C + B] of the local node sets [cC - B,
+    (c + 1)C) of the S chunks from chunk ``first`` on, and their mask:
+    chunk 0 has no previous band, and its locals 0..B-1 are masked dummies
+    that repeat node 0 (zeros would give NaNs in the factor math before the
+    mask applies)."""
+    g = ((first + torch.arange(S, device=device))[:, None] * C - B
          + torch.arange(C + B, device=device)[None, :])
     return torch.clamp(g, min=0), g >= 0
 
 
 def _pair_add(acc, n: int, s, a, b, x):
     """acc [S * n * n, k, k] += x at the block (a, b) of chunk s."""
-    return acc.index_add_(0, ((s * n + a) * n + b).reshape(-1), x.reshape((-1,) + x.shape[-2:]))
+    return index_sum_(acc, ((s * n + a) * n + b).reshape(-1), x.reshape((-1,) + x.shape[-2:]))
 
 
 def _eval_local(ba: NodesBA, nodes: NavState, lm_invd, params: IntegrationParams, B: int,
-                with_system: bool = True):
-    """Each chunk's local system before landmark elimination:
+                with_system: bool = True, first: int = 0):
+    """Each chunk's local system before landmark elimination, for the S
+    chunks of ``ba`` (global chunks ``first`` on):
     (H [S, D, D], g [S, D], Hxl [S, D, Lp], hll [S, Lp], gl [S, Lp],
     cost [S], loc_valid [S, C + B]) with D = (C + B) * 15. With
     ``with_system=False`` only the costs (and the mask)."""
     S, C = ba.n_shards, ba.chunk
     n = C + B
     dev = ba.node_valid.device
-    idx, ok = local_node_index(S, C, B, dev)
+    idx, ok = local_node_index(S, C, B, dev, first)
     loc = NavState(*(x[idx] for x in nodes))  # [S, n, ...]
     loc_valid = ok & ba.node_valid[idx]
     dtype = loc.p.dtype
@@ -289,8 +299,10 @@ def _eval_local(ba: NodesBA, nodes: NavState, lm_invd, params: IntegrationParams
     _pair_add(Hpre, n, s_c, fj, fj, tr(Jj) @ Jj)
     _pair_add(Hpre, n, s_c, fi, fj, Aij)
     _pair_add(Hpre, n, s_c, fj, fi, tr(Aij))
-    g_n.index_add_(0, (s_c * n + fi).reshape(-1), (tr(Ji) @ r_pre[..., None])[..., 0].reshape(-1, NODE_DOF))
-    g_n.index_add_(0, (s_c * n + fj).reshape(-1), (tr(Jj) @ r_pre[..., None])[..., 0].reshape(-1, NODE_DOF))
+    index_sum_(g_n, (s_c * n + fi).reshape(-1),
+               (tr(Ji) @ r_pre[..., None])[..., 0].reshape(-1, NODE_DOF))
+    index_sum_(g_n, (s_c * n + fj).reshape(-1),
+               (tr(Jj) @ r_pre[..., None])[..., 0].reshape(-1, NODE_DOF))
 
     # GNSS: 6 x 6 pose blocks of the own nodes
     Hvis = J_pre.new_zeros((S * n * n, 6, 6))
@@ -298,8 +310,8 @@ def _eval_local(ba: NodesBA, nodes: NavState, lm_invd, params: IntegrationParams
     w_g = huber_weight(chi_g)
     kown = (B + torch.arange(C, device=dev)).expand(S, C)
     _pair_add(Hvis, n, s_c, kown, kown, w_g[..., None, None] * (tr(J_g) @ J_g))
-    g_v.index_add_(0, (s_c * n + kown).reshape(-1),
-                   (w_g[..., None] * (tr(J_g) @ r_g[..., None])[..., 0]).reshape(-1, 6))
+    index_sum_(g_v, (s_c * n + kown).reshape(-1),
+               (w_g[..., None] * (tr(J_g) @ r_g[..., None])[..., 0]).reshape(-1, 6))
 
     # reprojection: ref pose, obs pose and inverse depth columns
     J_v = J_v * m_v[..., None, None]
@@ -317,8 +329,10 @@ def _eval_local(ba: NodesBA, nodes: NavState, lm_invd, params: IntegrationParams
     H_ro = tr(wJr) @ Jo
     _pair_add(Hvis, n, s_lw, ref_w, obs, H_ro)
     _pair_add(Hvis, n, s_lw, obs, ref_w, tr(H_ro))
-    g_v.index_add_(0, (s_lw * n + obs).reshape(-1), (tr(wJo) @ r_v[..., None])[..., 0].reshape(-1, 6))
-    g_v.index_add_(0, (s_lw * n + ref_w).reshape(-1), (tr(wJr) @ r_v[..., None])[..., 0].reshape(-1, 6))
+    index_sum_(g_v, (s_lw * n + obs).reshape(-1),
+               (tr(wJo) @ r_v[..., None])[..., 0].reshape(-1, 6))
+    index_sum_(g_v, (s_lw * n + ref_w).reshape(-1),
+               (tr(wJr) @ r_v[..., None])[..., 0].reshape(-1, 6))
     hll = torch.sum(wJl * Jl, (2, 3))
     gl = torch.sum(wJl * r_v, (2, 3))
     # landmark-node cross terms [S, n, 6, Lp]
@@ -341,32 +355,51 @@ def _eval_local(ba: NodesBA, nodes: NavState, lm_invd, params: IntegrationParams
     return H, g.reshape(S, D), Hxl.reshape(S, D, Lp), hll, gl, cost, loc_valid
 
 
+def take_local(ba: NodesBA, mesh) -> NodesBA:
+    """This rank's chunks of a problem built with all of them: the
+    ``CHUNK_FIELDS`` cut to the rank's ``mesh.local("nodes")`` chunks, the
+    shared fields as they are (JAX's ``shard_map`` in_specs). With one rank
+    the problem itself."""
+    if not mesh.distributed:
+        return ba
+    first, n = mesh.first(AXIS), mesh.local(AXIS)
+    cut = lambda x: x[first:first + n]  # noqa: E731
+    return ba._replace(**{f: pytree.tree_map(cut, getattr(ba, f)) for f in CHUNK_FIELDS})
+
+
 def ba_nodes_solve(ba: NodesBA, params: IntegrationParams, mesh=None, iters: int = 10,
                    lam0: float = 1e-4, sep_width: int = 1):
     """Damped Gauss-Newton (LM accept / reject) over the chunked problem.
     Returns (problem with the updated nodes and inverse depths, (cost0,
     cost1, accepted, iters_run)). ``sep_width`` must match the value the
     problem was built with; ``mesh``, when given, must have ``n_shards``
-    shards on its axis "nodes" and hold the problem's device. The damping
-    and the accept / reject decisions are made once, on the summed
-    costs."""
-    S, C, N = ba.n_shards, ba.chunk, ba.n_nodes
+    shards on its axis "nodes" and this rank's device. Every rank passes
+    the whole problem, works on its own chunks and gets the whole result
+    back, the same on every rank. The damping and the accept / reject
+    decisions are made on the costs summed over the chunks and ranks."""
+    S_all, C, N = ba.n_shards, ba.chunk, ba.n_nodes
+    first = 0
     if mesh is not None:
-        if mesh.shape[AXIS] != S:
-            raise ValueError(f"the problem has {S} chunks, the mesh {mesh.shape[AXIS]} shards")
+        if mesh.shape[AXIS] != S_all:
+            raise ValueError(f"the problem has {S_all} chunks, the mesh {mesh.shape[AXIS]} shards")
         if ba.node_valid.device != mesh.device:
-            raise ValueError(f"the problem is on {ba.node_valid.device}, the mesh on {mesh.device}")
+            raise ValueError(f"the problem is on {ba.node_valid.device}, rank {mesh.rank}'s "
+                             f"mesh on {mesh.device}")
+        ba_all, ba = ba, take_local(ba, mesh)
+        first = mesh.first(AXIS)
+    S = ba.n_shards  # this rank's chunks, global chunks first .. first + S - 1
     B = int(sep_width)
     dev = ba.node_valid.device
     BD = B * NODE_DOF  # one band's dimensions
     DI = (C - B) * NODE_DOF  # interior dimensions (locals B .. C - 1)
     DL = (C + B) * NODE_DOF
-    DB = S * BD  # the separator system
-    sid = torch.arange(S, device=dev)
+    DB = S_all * BD  # the separator system
+    sid = torch.arange(S_all, device=dev)
+    cid = first + torch.arange(S, device=dev)
     # the chunk's two bands (locals [0, B) and [C, C + B)) are the global
     # bands c - 1 and c; chunk 0's previous band is a dummy (a zero row)
-    OH = torch.stack([(sid[None, :] == sid[:, None] - 1), (sid[None, :] == sid[:, None])],
-                     1).to(ba.nodes.p.dtype)  # [S(chunk), 2, S(band)]
+    OH = torch.stack([(sid[None, :] == cid[:, None] - 1), (sid[None, :] == cid[:, None])],
+                     1).to(ba.nodes.p.dtype)  # [S(chunk), 2, S_all(band)]
     bsel = torch.cat([torch.arange(BD, device=dev), C * NODE_DOF + torch.arange(BD, device=dev)])
     isel = BD + torch.arange(DI, device=dev)
     int_mask = torch.zeros(DL, dtype=ba.nodes.p.dtype, device=dev)
@@ -376,7 +409,8 @@ def ba_nodes_solve(ba: NodesBA, params: IntegrationParams, mesh=None, iters: int
     cho = lambda Lc, b: torch.cholesky_solve(b, Lc)  # noqa: E731
 
     def step(nodes, lm_invd, lam):
-        H, g, Hxl, hll, gl, _, loc_valid = _eval_local(ba, nodes, lm_invd, params, B)
+        H, g, Hxl, hll, gl, _, loc_valid = _eval_local(ba, nodes, lm_invd, params, B,
+                                                       first=first)
         # landmark elimination, per chunk
         hll = torch.where(hll * lm_free > 1e-12, hll, torch.ones_like(hll))
         hll_d = hll * (1.0 + lam)
@@ -404,29 +438,36 @@ def ba_nodes_solve(ba: NodesBA, params: IntegrationParams, mesh=None, iters: int
         Sbb = Hbb - Hib.transpose(-1, -2) @ HiiInvHib  # [S, 2BD, 2BD]
         sb = gb - (Hib.transpose(-1, -2) @ HiiInvGi[..., None])[..., 0]
 
-        # each chunk's two bands into the separator system, summed over chunks
-        Sg = psum(torch.einsum("cas,caibj,cbt->csitj", OH, Sbb.reshape(S, 2, BD, 2, BD), OH)
-                  .reshape(S, DB, DB))
-        sg = psum(torch.einsum("cas,cai->csi", OH, sb.reshape(S, 2, BD)).reshape(S, DB))
+        # each chunk's two bands into the separator system, summed over the
+        # chunks and the ranks in one collective
+        Sg, sg = psum_packed(
+            [torch.einsum("cas,caibj,cbt->csitj", OH, Sbb.reshape(S, 2, BD, 2, BD), OH)
+             .reshape(S, DB, DB),
+             torch.einsum("cas,cai->csi", OH, sb.reshape(S, 2, BD)).reshape(S, DB)], mesh)
         dS = torch.diagonal(Sg)
         Sg = Sg + torch.diag((dS < 1e-12).to(Sg.dtype))  # bands nothing touched
         dx_b = -torch.cholesky_solve(sg[:, None], torch.linalg.cholesky(Sg))[:, 0]
 
         # back-substitution, per chunk
-        dx_b_loc = torch.einsum("cas,si->cai", OH, dx_b.reshape(S, BD)).reshape(S, 2 * BD)
+        dx_b_loc = torch.einsum("cas,si->cai", OH, dx_b.reshape(S_all, BD)).reshape(S, 2 * BD)
         dx_i = -HiiInvGi - (HiiInvHib @ dx_b_loc[..., None])[..., 0]
         dx_loc = H.new_zeros((S, DL))
         dx_loc[:, isel] = dx_i
         dx_loc[:, bsel] = dx_b_loc
         dx_loc = dx_loc * free
         dx_l = -lm_free * (glf + (Hxlf.transpose(-1, -2) @ dx_loc[..., None])[..., 0]) / hll_d
-        # chunk c's interior is nodes cC .. (c+1)C - B - 1; its band the next B
+        # chunk c's interior is nodes cC .. (c+1)C - B - 1, its own rows;
+        # its band the next B, from the separator solve every rank made
         dx_nodes = torch.cat([dx_i.reshape(S, C - B, NODE_DOF),
-                              dx_b.reshape(S, B, NODE_DOF)], 1).reshape(N, NODE_DOF)
+                              dx_b.reshape(S_all, B, NODE_DOF)[first:first + S]],
+                             1).reshape(S * C, NODE_DOF)
+        if mesh is not None:
+            (dx_nodes,) = assemble([(dx_nodes, first * C, N)], mesh)
         return dx_nodes, dx_l
 
     def total_cost(nodes, lm_invd):
-        return psum(_eval_local(ba, nodes, lm_invd, params, B, with_system=False)[5])
+        return psum(_eval_local(ba, nodes, lm_invd, params, B, with_system=False,
+                                first=first)[5], mesh)
 
     nodes, lm_invd = ba.nodes, ba.lm_invdepth
     cost0 = total_cost(nodes, lm_invd)
@@ -449,4 +490,7 @@ def ba_nodes_solve(ba: NodesBA, params: IntegrationParams, mesh=None, iters: int
             lam = lam * 4.0
         if converged or lam > 1e10:
             break
+    if mesh is not None:
+        (lm_invd,) = assemble([(lm_invd, first, S_all)], mesh)
+        ba = ba_all
     return ba._replace(nodes=nodes, lm_invdepth=lm_invd), (cost0, cost, nacc, it)

@@ -8,6 +8,11 @@ solves all B windows in one set of batched operations
 ``solver.lm.lm_step``), where the JAX package ``jax.vmap``s
 ``lm.optimize``.
 
+Across ``torch.distributed`` ranks each rank takes its share of the
+sequences (``shard_batch``) and optimizes them with no communication, as
+the JAX package's data-parallel mesh axis ``"dp"`` does; ``gather_batch``
+makes the results whole on every rank.
+
 Each sequence keeps its own control, as under ``jax.vmap``: its own
 accept / reject, damping ``lam``, chi2 gates and culls, and its own early
 exit. A sequence that has stopped is frozen while the others go on, and
@@ -33,6 +38,7 @@ from ..solver.lm import (
     phase_iters,
 )
 from ..solver.window import Prior, SolverConfig, Window
+from . import assemble
 
 
 def _batched(fn):
@@ -110,14 +116,36 @@ def optimize_batch(windows: Window, priors: Prior, cfg: SolverConfig,
     return windows, (s1[0], s2[1], n_culled, s1[4] + s2[4], s1[3] + s2[3])
 
 
+def batch_rows(n: int, mesh) -> slice:
+    """The sequences of a batch of ``n`` that this rank holds: a contiguous
+    run, rank r the sequences [r n / W, (r + 1) n / W) rounded down, so a
+    batch that the W ranks do not divide is split as evenly as it can be."""
+    if n < mesh.world:
+        raise ValueError(f"a batch of {n} cannot give each of {mesh.world} ranks a sequence")
+    return slice(n * mesh.rank // mesh.world, n * (mesh.rank + 1) // mesh.world)
+
+
 def shard_batch(windows: Window, priors: Prior, mesh, axis: str = "dp"):
-    """Place the batch on the mesh. One card holds every sequence, so this
-    moves the tensors to the mesh's device (the JAX function splits the
-    batch axis over the devices of ``axis``)."""
+    """This rank's sequences of the batch (``batch_rows``), on the mesh's
+    device; with one rank the whole batch. The JAX function splits the
+    batch axis over the devices of ``axis`` and needs the batch to divide
+    them; here it need not. ``optimize_batch`` then runs each rank's
+    sequences with no communication, as in JAX, and ``gather_batch``
+    returns the results of the whole batch to every rank."""
     if axis not in mesh.shape:
         raise ValueError(f"the mesh has no axis {axis!r}: {mesh.shape}")
-    move = lambda x: x.to(mesh.device)  # noqa: E731
-    return pytree.tree_map(move, windows), pytree.tree_map(move, priors)
+    rows = batch_rows(windows.nodes.p.shape[0], mesh)
+    take = lambda x: x[rows].to(mesh.device)  # noqa: E731
+    return pytree.tree_map(take, windows), pytree.tree_map(take, priors)
+
+
+def gather_batch(tree, n: int, mesh):
+    """A pytree of this rank's per-sequence results (leading axis: its
+    ``batch_rows(n, mesh)``) made whole on every rank with one collective,
+    the same bits on every rank."""
+    leaves, spec = pytree.tree_flatten(tree)
+    start = batch_rows(n, mesh).start
+    return pytree.tree_unflatten(assemble([(x, start, n) for x in leaves], mesh), spec)
 
 
 def stack_windows(wins: list[Window]) -> Window:

@@ -4,9 +4,11 @@
 The reduced camera system ``H_red = Hxx - sum_l Hxl_l hll_l^-1 Hlx_l`` is
 a sum of per-landmark terms, so it shards over landmarks: each shard
 computes its landmarks' contribution, the contributions are summed over
-the shards (the JAX ``psum``), the small reduced system is solved once,
-and the landmark back-substitution stays per landmark. On one card the
-shards are slices of one tensor axis.
+the shards and the ranks (the JAX ``psum``; a rank holds
+``mesh.local("lm")`` shards as a leading tensor axis), the small reduced
+system is solved on every rank, and the landmark back-substitution stays
+with the rank that holds the landmark. The updated window is gathered
+whole on every rank.
 """
 
 import torch
@@ -21,8 +23,8 @@ from ..solver.assembly import (
     free_mask_states,
 )
 from ..solver.window import NODE_DOF, Prior, SolverConfig, Window, apply_delta
-from . import psum
-from .lm_sharded import AXIS, check_mesh
+from . import psum_packed
+from .lm_sharded import gather_window, shard_window
 
 
 def _zero_prior(window: Window) -> Prior:
@@ -40,16 +42,15 @@ def _select(window: Window, preint: bool, gnss: bool, reproj: bool) -> FactorSel
                      reproj=full(window.n_landmarks, reproj))
 
 
-def _reproj_blocks(window: Window, cfg: SolverConfig, params: IntegrationParams,
-                   shards: int | None = None):
+def _reproj_blocks(window: Window, cfg: SolverConfig, params: IntegrationParams, mesh=None):
     """The reprojection factors' contributions, Huber-weighted:
-    (Hxx_v [DX,DX], gx_v [DX], Hxl [DX,L], hll [L], gl [L]). With ``shards``
-    Hxx_v and gx_v are summed per shard of landmarks, then over the
-    shards; Hxl, hll and gl are per landmark."""
+    (Hxx_v [DX,DX], gx_v [DX], Hxl [DX,L], hll [L], gl [L]). With a
+    ``mesh`` Hxx_v and gx_v are summed per shard of landmarks, then over
+    the shards and the ranks; Hxl, hll and gl are per landmark."""
     Hxx_v, gx_v, Hxl, hll, gl, _ = assemble_blocks(
         window, _zero_prior(window), cfg, params, RobustFlags(True, True),
         sel=_select(window, False, False, True), include_soft_priors=False,
-        gauge_fix=False, shards=shards)
+        gauge_fix=False, mesh=mesh)
     return Hxx_v, gx_v, Hxl, hll, gl
 
 
@@ -72,12 +73,14 @@ def _state_system(window: Window, prior: Prior, cfg: SolverConfig,
 def sharded_gn_step(window: Window, prior: Prior, cfg: SolverConfig,
                     params: IntegrationParams, mesh, lam: float = 1e-4) -> Window:
     """One damped Gauss-Newton step with the landmarks sharded over the
-    mesh axis "lm" (the landmark capacity must divide its size). Returns
-    the updated window."""
-    shards = check_mesh(window, mesh, AXIS)
+    mesh axis "lm" (the landmark capacity must divide its size). Every
+    rank passes the same whole window; returns the updated whole window."""
+    n_landmarks = window.n_landmarks
+    window = shard_window(window, mesh)
+    shards = mesh.local("lm")
     dtype = window.nodes.p.dtype
     Hx, gx = _state_system(window, prior, cfg, params)
-    Hxx_v, gx_v, Hxl, hll, gl = _reproj_blocks(window, cfg, params, shards)
+    Hxx_v, gx_v, Hxl, hll, gl = _reproj_blocks(window, cfg, params, mesh)
     Hx = Hx + Hxx_v
     gx = gx + gx_v
 
@@ -87,8 +90,11 @@ def sharded_gn_step(window: Window, prior: Prior, cfg: SolverConfig,
     DX = Hx.shape[0]
     per_shard = lambda x: x.reshape(DX, shards, -1).transpose(0, 1)  # noqa: E731
     Hw = per_shard(Hxl / hll_d[None, :])  # [S, DX, L/S]
-    H_red = Hx - psum(Hw @ per_shard(Hxl).transpose(1, 2))
-    g_red = gx - psum((per_shard(Hxl) @ (gl * lm_free / hll_d).reshape(shards, -1, 1))[..., 0])
+    H_red_v, g_red_v = psum_packed(
+        [Hw @ per_shard(Hxl).transpose(1, 2),
+         (per_shard(Hxl) @ (gl * lm_free / hll_d).reshape(shards, -1, 1))[..., 0]], mesh)
+    H_red = Hx - H_red_v
+    g_red = gx - g_red_v
 
     # damp and freeze the invalid state dims; the reduced solve runs once
     free = free_mask_states(window, cfg).to(dtype)
@@ -99,4 +105,4 @@ def sharded_gn_step(window: Window, prior: Prior, cfg: SolverConfig,
     chol = torch.linalg.cholesky(H_red + 1e-12 * torch.eye(DX, dtype=dtype, device=Hx.device))
     dx_x = -torch.cholesky_solve(g_red[:, None], chol)[:, 0]
     dx_l = -lm_free * (gl + Hxl.T @ dx_x) / hll_d
-    return apply_delta(window, torch.cat([dx_x, dx_l]))
+    return gather_window(apply_delta(window, torch.cat([dx_x, dx_l])), n_landmarks, mesh)

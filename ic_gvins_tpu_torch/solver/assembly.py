@@ -8,7 +8,8 @@ its weighted blocks are accumulated into the Schur-structured system
 
 over the fixed window layout of ``window.py``. Blocks whose node index
 repeats across factors (landmarks sharing an anchor) accumulate with
-``index_add_``; blocks with unique indices use indexed ``+=``.
+``index_sum_`` (a sum in a fixed order, on the card too); blocks with
+unique indices use indexed ``+=``.
 
 Robustification is IRLS: the Huber weight rho'(chi2) scales each factor's
 (H, g) contribution and the robust cost 0.5 * sum(rho(chi2)) drives the LM
@@ -30,10 +31,11 @@ from ..factors.residuals import (
 )
 from ..ins.preintegration import preint_residual, preint_residual_jac, sqrt_information
 from ..ins.preintegration_odo import OdoPreintData, preint_odo_residual, preint_odo_residual_jac
-from ..parallel import psum
+from ..parallel import psum, psum_packed, psum_rank0
 from .window import EXT_DOF, NODE_DOF, Prior, SolverConfig, Window, state_boxminus
 
 SODO = 7  # the odometer scale's index in the extrinsic block
+LM_AXIS = "lm"  # the mesh axis the landmarks are sharded over
 
 
 class RobustFlags(NamedTuple):
@@ -52,6 +54,18 @@ class FactorSel(NamedTuple):
 
 def huber_rho(s):
     return torch.where(s <= 1.0, s, 2.0 * torch.sqrt(torch.clamp(s, min=1.0)) - 1.0)
+
+
+def index_sum_(acc, index, src):
+    """``acc[index[i]] += src[i]`` along dim 0, in place, summed in an order
+    that the inputs fix. On the CPU that is ``index_add_`` (one pass in the
+    order of ``index``). On the card ``index_add_`` adds with atomics, whose
+    order, and so whose rounding, changes from run to run; there it is
+    ``index_put_(accumulate=True)``, which sorts the index and adds each
+    index's terms in a fixed order."""
+    if acc.is_cuda:
+        return acc.index_put_((index,), src, accumulate=True)
+    return acc.index_add_(0, index, src)
 
 
 def is_odo_window(window: Window) -> bool:
@@ -191,11 +205,12 @@ def eval_prior(window: Window, prior: Prior):
 # ---------------------------------------------------------------------------
 
 
-def robust_cost(window: Window, prior: Prior, cfg: SolverConfig,
-                params: IntegrationParams, flags: RobustFlags, shards: int | None = None):
-    """Total robust cost 0.5 * sum(rho(chi2)) over all factors. With
-    ``shards`` the vision term is summed per shard of landmarks, then over
-    the shards."""
+def _cost_terms(window: Window, prior: Prior, cfg: SolverConfig,
+                params: IntegrationParams, flags: RobustFlags):
+    """The robust cost's terms: the squared whitened preintegration
+    residuals, the GNSS rho [N], the reprojection rho [L, N], the squared
+    bias prior, the prior's 2 x cost and the odometer-scale prior's cost
+    (None without the odometer)."""
     dtype = window.nodes.p.dtype
     s0, s1 = _preint_pairs(window)
     if is_odo_window(window):
@@ -215,26 +230,53 @@ def robust_cost(window: Window, prior: Prior, cfg: SolverConfig,
 
     chi_g = torch.sum(r_g**2, -1)
     chi_v = torch.sum(r_v**2, -1)
+    odo = 0.5 * (window.sodo / cfg.sodo_prior_std) ** 2 if is_odo_window(window) else None
+    return (r_pre**2, huber_rho(chi_g) if flags.gnss_kernel else chi_g,
+            huber_rho(chi_v) if flags.reproj_kernel else chi_v, r_b**2, prior_cost2, odo)
+
+
+def robust_cost(window: Window, prior: Prior, cfg: SolverConfig,
+                params: IntegrationParams, flags: RobustFlags, mesh=None, also_max=None):
+    """Total robust cost 0.5 * sum(rho(chi2)) over all factors. With a
+    ``mesh`` the vision term is summed per landmark shard (axis "lm"),
+    then over the shards; across ranks the replicated terms enter from
+    rank 0 only, in the same all-reduce, so that every rank reads the same
+    cost, and ``also_max`` (this rank's 0-dim value) rides along: then
+    (cost, the max of ``also_max`` over the ranks)."""
+    pre2, rho_g, rho_v, b2, prior_cost2, odo = _cost_terms(window, prior, cfg, params, flags)
+    if mesh is not None and mesh.distributed:
+        rep = 0.5 * (torch.sum(pre2) + torch.sum(rho_g) + torch.sum(b2) + prior_cost2)
+        if odo is not None:
+            rep = rep + odo
+        return psum_rank0(0.5 * landmark_shards(rho_v, mesh, 1), rep, mesh, also_max)
     cost = 0.5 * (
-        torch.sum(r_pre**2)
-        + torch.sum(huber_rho(chi_g) if flags.gnss_kernel else chi_g)
-        + landmark_sum(huber_rho(chi_v) if flags.reproj_kernel else chi_v, shards, 1)
-        + torch.sum(r_b**2)
+        torch.sum(pre2)
+        + torch.sum(rho_g)
+        + landmark_sum(rho_v, mesh, 1)
+        + torch.sum(b2)
         + prior_cost2
     )
-    if is_odo_window(window):
-        cost = cost + 0.5 * (window.sodo / cfg.sodo_prior_std) ** 2
+    if odo is not None:
+        cost = cost + odo
     return cost
 
 
-def landmark_sum(x, shards: int | None, *dims):
-    """Sum of per-landmark terms ``x`` [L, ...] over the landmarks (and
-    the further axes ``dims``): at once, or with ``shards`` per shard of
-    L / shards landmarks and then over the shards (the JAX ``psum``)."""
-    if shards is None:
-        return x.sum((0,) + dims)
+def landmark_shards(x, mesh, *dims):
+    """Per-landmark terms ``x`` [L, ...] summed within each of the rank's
+    ``mesh.local("lm")`` contiguous landmark shards (and over the further
+    axes ``dims``): [S, ...], not yet reduced over the shards."""
+    shards = mesh.local(LM_AXIS)
     xs = x.reshape((shards, x.shape[0] // shards) + x.shape[1:])
-    return psum(xs.sum((1,) + tuple(d + 1 for d in dims)))
+    return xs.sum((1,) + tuple(d + 1 for d in dims))
+
+
+def landmark_sum(x, mesh, *dims):
+    """Sum of per-landmark terms ``x`` [L, ...] over the landmarks (and
+    the further axes ``dims``): at once, or with a ``mesh`` per shard of
+    landmarks and then over the shards and ranks (the JAX ``psum``)."""
+    if mesh is None:
+        return x.sum((0,) + dims)
+    return psum(landmark_shards(x, mesh, *dims), mesh)
 
 
 def _ata(a, b):
@@ -251,15 +293,17 @@ def assemble_blocks(
     sel: FactorSel = None,
     include_soft_priors: bool = True,
     gauge_fix: bool = True,
-    shards: int | None = None,
+    mesh=None,
 ):
     """Schur-structured normal equations ``(Hxx, gx, Hxl, hll, gl, cost)``
     with frozen/invalid dims masked (zero rows/cols, unit diagonal).
 
-    With ``shards`` (S) the landmarks are cut into S contiguous shards:
-    the vision terms of the state system and the vision cost are summed
-    per shard, then over the shards (JAX's ``psum`` over the mesh axis),
-    while ``Hxl``, ``hll`` and ``gl`` stay per landmark."""
+    With a ``mesh`` (``parallel.Mesh``) the window holds this rank's
+    landmarks, cut into ``mesh.local("lm")`` contiguous shards: the vision
+    terms of the state system and the vision cost are summed per shard,
+    then over the shards and the ranks in one collective (JAX's ``psum``
+    over the mesh axis), while ``Hxl``, ``hll`` and ``gl`` stay per
+    landmark."""
     N, L = window.n_nodes, window.n_landmarks
     DX = window.dim_x
     dtype, dev = window.nodes.p.dtype, window.nodes.p.device
@@ -331,26 +375,40 @@ def assemble_blocks(
     wJe = w_v[..., None, None] * Je
     wJl = w_v[..., None] * Jl
     ref = window.lm_ref.long()
-
-    def by_anchor(x):
-        """Sum per-landmark terms [L, ...] into their anchor nodes [N, ...]
-        (per shard, then over the shards)."""
-        if shards is None:
-            return x.new_zeros((N,) + x.shape[1:]).index_add_(0, ref, x)
-        shard_of = torch.arange(L, device=dev) // (L // shards)
-        per_shard = x.new_zeros((shards * N,) + x.shape[1:]).index_add_(
-            0, shard_of * N + ref, x)
-        return psum(per_shard.reshape((shards, N) + x.shape[1:]))
-
-    lsum = lambda x, *dims: landmark_sum(x, shards, *dims)  # noqa: E731
-    H_oo = lsum(_ata(wJo, Jo))  # [N,6,6]
-    H_rr = by_anchor(_ata(wJr, Jr).sum(1))  # [N,6,6]
-    H_ro = by_anchor(_ata(wJr, Jo))  # [a=ref, k=obs, 6, 6]
+    rv_ = r_v[..., None]
+    # the vision terms of the state system and the vision cost, each a sum
+    # of per-landmark terms over the landmarks (with the further axes
+    # ``dims``) or, for dims None, into the landmarks' anchor nodes [N, ...]
+    terms = (
+        (_ata(wJo, Jo), ()),  # H_oo [N,6,6]
+        (_ata(wJr, Jr).sum(1), None),  # H_rr [N,6,6]
+        (_ata(wJr, Jo), None),  # H_ro [a=ref, k=obs, 6, 6]
+        (_ata(wJo, Je), ()),  # Hne, observing node [N,6,7]
+        (_ata(wJr, Je).sum(1), None),  # Hne, anchor node
+        (_ata(wJe, Je), (1,)),  # Hee_v [7,7]
+        (wJo * rv_, (2,)),  # g_n, observing node [N,6]
+        (torch.sum(wJr * rv_, (1, 2)), None),  # g_n, anchor node
+        (wJe * rv_, (1, 2)),  # g_e_v [7]
+        (huber_rho(chi_v) if flags.reproj_kernel else chi_v, (1,)),  # cost
+    )
+    if mesh is None:
+        sums = [index_sum_(x.new_zeros((N,) + x.shape[1:]), ref, x) if dims is None
+                else x.sum((0,) + dims) for x, dims in terms]
+    else:
+        # per shard of landmarks, then over the shards and the ranks in one
+        # collective (JAX's psum of a tuple)
+        S = mesh.local(LM_AXIS)
+        shard_of = torch.arange(L, device=dev) // (L // S)
+        per_anchor = lambda x: index_sum_(  # noqa: E731
+            x.new_zeros((S * N,) + x.shape[1:]), shard_of * N + ref, x
+        ).reshape((S, N) + x.shape[1:])
+        sums = psum_packed([per_anchor(x) if dims is None else landmark_shards(x, mesh, *dims)
+                            for x, dims in terms], mesh)
+    H_oo, H_rr, H_ro, Hne_o, Hne_r, Hee_v, g_n_o, g_n_r, g_e_v, cost_v = sums
     # block (ref a, obs k) at [a, c, k, d]; its transpose at [k, d, a, c]
     Hpp_v = H_ro.permute(0, 2, 1, 3) + H_ro.permute(1, 3, 0, 2)
     Hpp_v.permute(0, 2, 1, 3)[k, k] += H_oo + H_rr
-    Hne_v = lsum(_ata(wJo, Je)) + by_anchor(_ata(wJr, Je).sum(1))  # [N,6,7]
-    Hee_v = lsum(_ata(wJe, Je), 1)  # [7,7]
+    Hne_v = Hne_o + Hne_r
 
     hll = torch.sum(wJl * Jl, (1, 2))
     wJl_ = wJl[..., None]
@@ -363,9 +421,7 @@ def assemble_blocks(
     Hle = like.new_zeros((L, ED))
     Hle[:, :7] = torch.sum(wJl_ * Je, (1, 2))
 
-    rv_ = r_v[..., None]
-    g_n_v = lsum(wJo * rv_, 2) + by_anchor(torch.sum(wJr * rv_, (1, 2)))
-    g_e_v = lsum(wJe * rv_, 1, 2)
+    g_n_v = g_n_o + g_n_r
     g_l = torch.sum(wJl * r_v, (1, 2))
 
     Hnn[:, 0:6, :, 0:6] += Hpp_v
@@ -373,7 +429,7 @@ def assemble_blocks(
     Hee[:7, :7] += Hee_v
     g_n[:, 0:6] += g_n_v
     g_e[:7] += g_e_v
-    cost = cost + 0.5 * lsum(huber_rho(chi_v) if flags.reproj_kernel else chi_v, 1)
+    cost = cost + 0.5 * cost_v
 
     # --- soft bias prior on the newest node ---
     if include_soft_priors:
@@ -477,23 +533,25 @@ def solve_reduced(H_red, g_red):
     return s * y
 
 
-def schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam, shards: int | None = None):
+def schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam, mesh=None):
     """Solve the damped system (H + lam diag(H)) dx = -g by eliminating the
-    diagonal landmark block. With ``shards`` the landmark terms of the
-    reduced system are summed per shard, then over the shards. Returns
-    (dx_x [DX], dx_l [L])."""
+    diagonal landmark block. With a ``mesh`` the landmark terms of the
+    reduced system are summed per landmark shard, then over the shards and
+    the ranks in one collective. Returns (dx_x [DX], dx_l [L])."""
     Hxx_d = Hxx + torch.diag(lam * torch.diagonal(Hxx))
     hll_d = hll * (1.0 + lam)
     Hxl_w = Hxl / hll_d[None, :]
-    if shards is None:
+    if mesh is None:
         H_red = Hxx_d - Hxl_w @ Hxl.T
         g_red = gx - Hxl_w @ gl
     else:
-        DX = Hxl.shape[0]
-        per_shard = lambda x: x.reshape(DX, shards, -1).transpose(0, 1)  # noqa: E731
+        DX, S = Hxl.shape[0], mesh.local(LM_AXIS)
+        per_shard = lambda x: x.reshape(DX, S, -1).transpose(0, 1)  # noqa: E731
         Hw = per_shard(Hxl_w)  # [S, DX, L/S]
-        H_red = Hxx_d - psum(Hw @ per_shard(Hxl).transpose(1, 2))
-        g_red = gx - psum((Hw @ gl.reshape(shards, -1, 1))[..., 0])
+        H_red_v, g_red_v = psum_packed([Hw @ per_shard(Hxl).transpose(1, 2),
+                                        (Hw @ gl.reshape(S, -1, 1))[..., 0]], mesh)
+        H_red = Hxx_d - H_red_v
+        g_red = gx - g_red_v
     dx_x = -solve_reduced(H_red, g_red)
     dx_l = -(gl + Hxl.T @ dx_x) / hll_d
     return dx_x, dx_l

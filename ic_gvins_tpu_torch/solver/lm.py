@@ -21,6 +21,7 @@ from .assembly import (
     assemble_blocks,
     eval_gnss,
     eval_reproj_res,
+    LM_AXIS,
     gnss_mask,
     robust_cost,
     schur_solve_blocks,
@@ -42,38 +43,41 @@ class LMStats(NamedTuple):
 
 
 def lm_step(window: Window, prior: Prior, cfg: SolverConfig,
-            params: IntegrationParams, flags: RobustFlags, lam,
-            shards: int | None = None):
+            params: IntegrationParams, flags: RobustFlags, lam, mesh=None):
     """One damped Gauss-Newton step, the pure body of the LM loop: the
-    trial window, its robust cost and the step's largest entry (the max
-    over the landmark shards with ``shards``)."""
-    Hxx, gx, Hxl, hll, gl, _ = assemble_blocks(window, prior, cfg, params, flags,
-                                               shards=shards)
-    dx_x, dx_l = schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam, shards=shards)
+    trial window, its robust cost and the step's largest entry (with a
+    ``mesh``, the max over the landmark shards and the ranks)."""
+    Hxx, gx, Hxl, hll, gl, _ = assemble_blocks(window, prior, cfg, params, flags, mesh=mesh)
+    dx_x, dx_l = schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam, mesh=mesh)
     win_new = apply_delta(window, torch.cat([dx_x, dx_l]))
-    cost_new = robust_cost(win_new, prior, cfg, params, flags, shards=shards)
     dx_max = torch.max(torch.abs(dx_x))
+    if mesh is not None and mesh.distributed:
+        # the rank's step max rides in the cost's collective, so that every
+        # rank decides and stops on the same values
+        return (win_new, *robust_cost(win_new, prior, cfg, params, flags, mesh=mesh,
+                                      also_max=torch.maximum(dx_max, torch.abs(dx_l).max())))
+    cost_new = robust_cost(win_new, prior, cfg, params, flags, mesh=mesh)
     if dx_l.numel():
-        l_max = (torch.max(torch.abs(dx_l)) if shards is None
-                 else pmax(torch.abs(dx_l).reshape(shards, -1).amax(1)))
+        l_max = (torch.max(torch.abs(dx_l)) if mesh is None
+                 else pmax(torch.abs(dx_l).reshape(mesh.local(LM_AXIS), -1).amax(1)))
         dx_max = torch.maximum(dx_max, l_max)
     return win_new, cost_new, dx_max
 
 
 def lm_run(window: Window, prior: Prior, cfg: SolverConfig,
            params: IntegrationParams, flags: RobustFlags, iters: int,
-           lam0: float = 1e-4, shards: int | None = None):
+           lam0: float = 1e-4, mesh=None):
     """LM with multiplicative damping and Ceres-parity early termination;
-    ``iters`` is the iteration budget. With ``shards`` the landmark sums
-    run per shard, then over the shards; every decision is made once."""
-    cost_init = robust_cost(window, prior, cfg, params, flags, shards=shards)
+    ``iters`` is the iteration budget. With a ``mesh`` the landmark sums
+    run per shard, then over the shards and the ranks; every decision is
+    made once, on values every rank received from one collective."""
+    cost_init = robust_cost(window, prior, cfg, params, flags, mesh=mesh)
     cost = cost_init
     lam = lam0
     naccept = 0
     it = 0
     while it < iters:
-        win_new, cost_new, dx_max = lm_step(window, prior, cfg, params, flags, lam,
-                                            shards=shards)
+        win_new, cost_new, dx_max = lm_step(window, prior, cfg, params, flags, lam, mesh=mesh)
         # one host read per iteration: the accept decision and stop flags
         cost_cur_f, cost_new_f, dx_max = (
             torch.stack([cost, cost_new, dx_max]).tolist()
@@ -97,11 +101,11 @@ def lm_run(window: Window, prior: Prior, cfg: SolverConfig,
                            accepted=naccept, iters_run=it)
 
 
-def chi2_cull(window: Window, cfg: SolverConfig, shards: int | None = None):
+def chi2_cull(window: Window, cfg: SolverConfig, mesh=None):
     """Between-phase chi2 gates. A majority of simultaneously bad GNSS fixes
-    points at the state, not the sensors, and skips the reweight. With
-    ``shards`` the culled count is summed per landmark shard, then over the
-    shards."""
+    points at the state, not the sensors, and skips the reweight. With a
+    ``mesh`` the culled count is summed per landmark shard, then over the
+    shards and the ranks."""
     gm = gnss_mask(window)
     r_g, _ = eval_gnss(window._replace(gnss_std=window.gnss_std_base), cfg)
     chi_g = torch.sum(r_g**2, -1)
@@ -124,8 +128,8 @@ def chi2_cull(window: Window, cfg: SolverConfig, shards: int | None = None):
     chi_v = torch.sum(r_v**2, -1)
     obs_valid = window.obs_valid & (chi_v <= 5.991)
     culled = window.obs_valid & ~obs_valid
-    n_culled = (torch.sum(culled) if shards is None
-                else psum(culled.reshape(shards, -1).sum(1)))
+    n_culled = (torch.sum(culled) if mesh is None
+                else psum(culled.reshape(mesh.local(LM_AXIS), -1).sum(1), mesh))
     return window._replace(gnss_std=gnss_std, obs_valid=obs_valid), n_culled
 
 
@@ -137,20 +141,21 @@ def phase_iters(iters: int):
 
 def optimize_impl(window: Window, prior: Prior, cfg: SolverConfig,
                   params: IntegrationParams, iters: int = 20,
-                  do_cull: bool = True, shards: int | None = None):
+                  do_cull: bool = True, mesh=None):
     """Two-phase optimization round. ``do_cull=False`` is the
-    initialization-phase solve: one robust LM run, no chi2 gates.
-    ``shards`` runs it landmark-sharded (``parallel/lm_sharded.py``).
-    Returns (window, (stats1, stats2, n_culled))."""
+    initialization-phase solve: one robust LM run, no chi2 gates. A
+    ``mesh`` runs it landmark-sharded on a window that holds this rank's
+    landmarks (``parallel/lm_sharded.py``). Returns (window, (stats1,
+    stats2, n_culled))."""
     robust = RobustFlags(gnss_kernel=True, reproj_kernel=True)
     if not do_cull:
-        window, stats = lm_run(window, prior, cfg, params, robust, iters, shards=shards)
+        window, stats = lm_run(window, prior, cfg, params, robust, iters, mesh=mesh)
         return window, (stats, stats, 0)
     it1, it2 = phase_iters(iters)
-    window, stats1 = lm_run(window, prior, cfg, params, robust, it1, shards=shards)
-    window, n_culled = chi2_cull(window, cfg, shards=shards)
+    window, stats1 = lm_run(window, prior, cfg, params, robust, it1, mesh=mesh)
+    window, n_culled = chi2_cull(window, cfg, mesh=mesh)
     flags2 = RobustFlags(gnss_kernel=False, reproj_kernel=True)
-    window, stats2 = lm_run(window, prior, cfg, params, flags2, it2, shards=shards)
+    window, stats2 = lm_run(window, prior, cfg, params, flags2, it2, mesh=mesh)
     return window, (stats1, stats2, n_culled)
 
 

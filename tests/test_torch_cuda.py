@@ -1,5 +1,5 @@
 """PyTorch port on the card: the Hopper KLT kernel against its plain
-PyTorch version. Imports neither jax nor the JAX package, so it also runs
+PyTorch version, and the solver's fixed-order sum. Imports neither jax nor the JAX package, so it also runs
 on a machine without them:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from ic_gvins_tpu_torch.solver.assembly import index_sum_
 from ic_gvins_tpu_torch.vision import klt, klt_cuda
 from ic_gvins_tpu_torch.vision.pyramid import build_pyramid
 
@@ -143,3 +144,21 @@ def test_kernel_rejects_cpu_cuda_mix():
     pts = torch.full((4, 2), 32.0)
     with pytest.raises(ValueError):
         klt_cuda.lk_track_bidirectional(pyr, pyr, pts, pts, torch.ones(4, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_index_sum_repeats_on_the_card(dtype):
+    """``index_sum_`` on the card, 6 x 6 blocks of 4096 landmarks into their
+    24 anchor nodes: the same bits on every call (``index_add_``'s atomics
+    give no such promise), and the CPU's float64 sum to rounding."""
+    dev = _device()
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(rng.integers(0, 24, 4096))
+    src = torch.from_numpy(rng.standard_normal((4096, 6, 6)))
+    outs = [index_sum_(torch.zeros((24, 6, 6), dtype=dtype, device=dev), idx.to(dev),
+                       src.to(dev, dtype)) for _ in range(5)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = torch.zeros((24, 6, 6), dtype=torch.float64).index_add_(0, idx, src.to(dtype).double())
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    assert float((outs[0].cpu().double() - ref).abs().max()) <= tol

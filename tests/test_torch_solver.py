@@ -396,3 +396,14 @@ def test_odometer_window_is_refused():
     odo = to_numpy(jwin.empty_window(4, 3, odo=True))
     with pytest.raises(ValueError):
         to_torch(Window, odo, "cpu")
+
+
+def test_index_sum_on_the_cpu_is_index_add():
+    """On the CPU ``index_sum_`` is ``index_add_`` to the bit (one pass in
+    index order), so the CPU results stay those of ``index_add_``."""
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy(rng.integers(0, 5, 64))
+    src = torch.from_numpy(rng.standard_normal((64, 6, 6)))
+    acc = torch.from_numpy(rng.standard_normal((5, 6, 6)))
+    got = tasm.index_sum_(acc.clone(), idx, src)
+    assert torch.equal(got, acc.clone().index_add_(0, idx, src))
