@@ -108,12 +108,26 @@ float32 mode on these paths; then the ``parallel/`` paths across
    bounds. It prints each path's wall and all-reduces beside phase 9's
    one-process time. (e) the same with ``nccl``, one rank per card, where
    the machine shows as many cards as ranks; otherwise a line says it did
-   not run.
+   not run;
+12. the entry points ``ic_gvins_tpu_torch/entry.py`` (the counterpart of
+   ``__graft_entry__.py``): (a) ``entry()`` with no device, and its
+   ``forward`` (the dense normal equations: ``assemble`` ->
+   ``schur_solve`` -> ``apply_delta``) on ``tiny_problem()`` (6 x 16) and
+   at full width on ``tiny_problem(24, 192)`` (D = 560), in float64 and
+   float32, against the JAX forward in ``tests/fixtures/torch_entry.npz``
+   (``tools/make_torch_entry_fixture.py``), the block path and itself
+   repeated bit for bit, with the dense and the block step's ms and
+   launches; (b) ``dryrun_multichip(n)`` (JAX's sharded round, node-chunked
+   BA and dp x lm batch at JAX's shapes) across 2 and 4 ``gloo`` ranks on
+   the one card, both worlds spawned at once, and meanwhile in one process
+   with n = 2 and 4 shards: every rank's results bit for bit rank 0's and
+   within 1e-10 m of the one-process run; (c) the same with ``nccl`` where
+   the machine shows a card per rank, else a line says it did not run.
 
-Phases 3 to 11 run with the kernel's launch count set to 0 before each and
+Phases 3 to 12 run with the kernel's launch count set to 0 before each and
 read after it; the ``launches`` of the kernels line sums phases 3, 6, 8
-and 10 (c) and (d); phase 9, phase 10 (a), (b) and (e) and phase 11 must
-launch it no time.
+and 10 (c) and (d); phase 9, phase 10 (a), (b) and (e) and phases 11 and
+12 must launch it no time.
 Every phase raises on failure. Needs a CUDA device: without one it exits
 with code 1 and prints no result. Prints a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -138,6 +152,7 @@ SIM_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_sim.npz")
 URBAN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_urban90.npz")
 PARALLEL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_parallel.npz")
 F32_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_f32.npz")
+ENTRY_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_entry.npz")
 
 IMG_W, IMG_H = 1278, 1022  # engine default camera
 N_FEATURES = 200
@@ -160,6 +175,11 @@ DIST_SPAWN_TIMEOUT = 400.0  # s, one spawn of phase 11's ranks
 # sums over the ranks round otherwise; against JAX, tests/test_multihost.py
 DIST_POS_ATOL = 1e-10  # m
 DIST_JAX_POS_ATOL = 1e-8  # m
+# phase 12: the entry's dense step against JAX's and the block path
+ENTRY_POS_ATOL = {"float64": 1e-9, "float32": 1e-4}  # m
+ENTRY_COST_RTOL = {"float64": 1e-10, "float32": 1e-5}
+ENTRY_REPS = 10  # timed forwards of each kind after the warm-up
+DRYRUN_SHARDS = (2, 4)  # shards, and ranks, of phase 12 (b)
 
 # Limits. KLT: the kernel sums the 441 window terms in another order than
 # the plain version (and may fuse multiply-adds), so points agree to
@@ -667,14 +687,18 @@ def compare_sim(got, ref):
     return worst, errs[worst], frame_err
 
 
-def phase_build():
-    from ic_gvins_tpu_torch.vision import klt_cuda
-
-    smi = subprocess.run(
+def card() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    log(smi)
+
+
+def phase_build():
+    from ic_gvins_tpu_torch.vision import klt_cuda
+
+    log(card())
     t0 = time.perf_counter()
     klt_cuda.load_library()
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a)")
@@ -1387,11 +1411,9 @@ def phase_ba_nodes(dev, fx):
 
 def free_port() -> int:
     """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
-    import socket
+    from ic_gvins_tpu_torch.parallel import free_port as port
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    return port()
 
 
 def rank_timed(fn, dev, mesh):
@@ -1606,15 +1628,50 @@ def dist_phase11(dev):
     return out
 
 
+def dryrun_result(res) -> dict:
+    """``entry.dryrun_multichip``'s results as numpy: each part's nodes,
+    inverse depths, decisions and costs."""
+    w, stats = res["round"]
+    ba, (c0, c1, nacc, it) = res["ba"]
+    nodes = lambda n: {k: to_np(getattr(n, k)) for k in ("p", "q", "v")}  # noqa: E731
+    out = {"round": {"nodes": nodes(w.nodes), "lm_invdepth": to_np(w.lm_invdepth),
+                     "obs_valid": to_np(w.obs_valid), "decisions": round_decisions(stats),
+                     "cost1": to_np(stats[1].cost1)},
+           "ba": {"nodes": nodes(ba.nodes), "lm_invdepth": to_np(ba.lm_invdepth),
+                  "cost": np.array([float(c0), float(c1)]), "decisions": np.array([nacc, it])}}
+    if res["batch"] is not None:
+        bn, bstats = res["batch"]
+        out["batch"] = {"nodes": nodes(bn), "stats": np.stack([to_np(x) for x in bstats])}
+    return out
+
+
+def dist_dryrun(dev):
+    """``entry.dryrun_multichip`` on as many shards as ranks, each rank one
+    shard of each part: its results and wall."""
+    import torch
+
+    from ic_gvins_tpu_torch.entry import dryrun_multichip
+    from ic_gvins_tpu_torch.vision import klt_cuda
+
+    klt_cuda.lk_track_bidirectional.launches = 0
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    res = dryrun_result(dryrun_multichip(_world(), dev))
+    sync()
+    return {**res, "klt_launches": np.int64(klt_cuda.lk_track_bidirectional.launches),
+            "time": {"ms": (time.perf_counter() - t0) * 1e3}}
+
+
 DIST_CASES = {"collectives": dist_collectives, "round": dist_round, "gn_step": dist_gn_step,
               "ba": dist_ba, "batch": dist_batch, "estimator": dist_estimator,
-              "guards": dist_guards, "phase11": dist_phase11}
+              "guards": dist_guards, "phase11": dist_phase11, "dryrun": dist_dryrun}
 
 
-def dist_rank(rank, world, init, backend, device, case, kwargs, out_path, threads=None):
+def dist_rank(rank, world, init, backend, devices, case, kwargs, out_paths, threads=None):
     """One rank of a spawned run: join the process group, run
-    ``DIST_CASES[case](device, **kwargs)`` and write its results to
-    ``out_path`` (npz)."""
+    ``DIST_CASES[case](devices[rank], **kwargs)`` and write its results to
+    ``out_paths[rank]`` (npz)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -1623,7 +1680,7 @@ def dist_rank(rank, world, init, backend, device, case, kwargs, out_path, thread
 
     if threads:
         torch.set_num_threads(threads)
-    dev = torch.device(device)
+    dev = torch.device(devices[rank])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     init_distributed(backend, init, world, rank, timeout=DIST_TIMEOUT)
@@ -1631,7 +1688,7 @@ def dist_rank(rank, world, init, backend, device, case, kwargs, out_path, thread
         out = DIST_CASES[case](dev, **kwargs)
     finally:
         shutdown_distributed()
-    np.savez(out_path, **flatten(_numpy_tree(out)))
+    np.savez(out_paths[rank], **flatten(_numpy_tree(out)))
 
 
 def _numpy_tree(tree):
@@ -1644,44 +1701,22 @@ def _numpy_tree(tree):
 
 def spawn_ranks(world, case, devices, out_dir, kwargs=None, backend="gloo",
                 timeout=DIST_SPAWN_TIMEOUT, threads=None, meanwhile=None):
-    """Run ``case`` on ``world`` ranks, processes started with the
-    ``spawn`` method (the caller may have initialized CUDA), rank r on
-    ``devices[r]``, joined by a process group on a free local port, and
-    ``meanwhile()`` here while they run. Kills them all when they have not
-    finished in ``timeout`` s, and raises then or when one failed. Returns
-    (each rank's results as nested dicts of numpy arrays, what
-    ``meanwhile`` returned)."""
-    import multiprocessing as mp
-
+    """Run ``case`` on ``world`` ranks (``parallel.spawn``: processes
+    started with the ``spawn`` method, joined by a process group on a free
+    local port), rank r on ``devices[r]``, and ``meanwhile()`` here while
+    they run. Raises when they have not finished in ``timeout`` s or when
+    one failed. Returns (each rank's results as nested dicts of numpy
+    arrays, what ``meanwhile`` returned)."""
     from ic_gvins_tpu_torch.convert import unflatten
+    from ic_gvins_tpu_torch.parallel import spawn
 
-    ctx = mp.get_context("spawn")
-    init = f"tcp://127.0.0.1:{free_port()}"
     os.makedirs(out_dir, exist_ok=True)
     paths = [os.path.join(out_dir, f"{case}_w{world}_r{r}.npz") for r in range(world)]
     for p in paths:
         if os.path.exists(p):
             os.remove(p)
-    procs = [ctx.Process(target=dist_rank, args=(r, world, init, backend, str(devices[r]), case,
-                                                 kwargs or {}, paths[r], threads))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    ref = None
-    try:
-        if meanwhile is not None:
-            ref = meanwhile()
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join()
-    check(not hung, f"{case} on {world} ranks ({backend}) did not end within {timeout:.0f} s")
-    codes = [p.exitcode for p in procs]
-    check(codes == [0] * world, f"{case} on {world} ranks ({backend}): exit codes {codes}")
+    ref = spawn(world, dist_rank, (backend, [str(d) for d in devices], case, kwargs or {},
+                                   paths, threads), timeout=timeout, meanwhile=meanwhile)
     return [unflatten(dict(np.load(p))) for p in paths], ref
 
 
@@ -1780,6 +1815,132 @@ def phase_distributed(dev, ref9, fx):
         for w in DIST_WORLDS:
             if w > cards:
                 log(f"phase 11 (e) nccl, {w} ranks: not run ({cards} card(s) visible)")
+
+
+def block_step(window, prior, cfg, params):
+    """``entry.forward`` by the block path: ``assemble_blocks`` ->
+    ``schur_solve_blocks`` -> ``apply_delta``."""
+    import torch
+
+    from ic_gvins_tpu_torch.solver import assembly
+    from ic_gvins_tpu_torch.solver.window import apply_delta
+
+    Hxx, gx, Hxl, hll, gl, cost = assembly.assemble_blocks(
+        window, prior, cfg, params, assembly.RobustFlags(gnss_kernel=True, reproj_kernel=True))
+    dx_x, dx_l = assembly.schur_solve_blocks(Hxx, gx, Hxl, hll, gl, 1e-4)
+    return apply_delta(window, torch.cat([dx_x, dx_l])), cost
+
+
+def phase_entry(dev):
+    """Phase 12 (a): ``entry()`` as a user calls it (no device: ``cuda:0``)
+    and its ``forward`` on ``tiny_problem()`` (6 x 16) and on
+    ``tiny_problem(24, 192)`` (D = 560), in float64 and float32 (the
+    problem cast): against the JAX forward in ``torch_entry.npz``, against
+    the block path, and against itself repeated bit for bit; then the
+    dense and the block step's ms and launches."""
+    import torch
+
+    from ic_gvins_tpu_torch import entry
+    from ic_gvins_tpu_torch.convert import cast, unflatten
+
+    fx = unflatten(dict(np.load(ENTRY_FIXTURE)))
+    forward, args = entry.entry()
+    check(args[0].nodes.p.device == dev, f"entry() put its problem on {args[0].nodes.p.device}")
+    smi = card()
+    for name, prob in (("6 x 16", args), ("24 x 192", entry.tiny_problem(24, 192))):
+        key = "tiny" if name == "6 x 16" else "slice"
+        for dtype in ("float64", "float32"):
+            p = prob if dtype == "float64" else tuple(cast(x, torch.float32) for x in prob)
+            (w, c), (w2, c2) = forward(*p), forward(*p)
+            check(tensor_bits((w, c)) == tensor_bits((w2, c2)),
+                  f"phase 12 (a) {name} {dtype}: the forward does not repeat bit for bit")
+            wb, cb = block_step(*p)
+            want = fx[key]["forward" if dtype == "float64" else "forward32"]
+            dj = max_abs(to_np(w.nodes.p), want["nodes"]["p"])
+            cj = abs(float(c) - float(want["cost"])) / abs(float(want["cost"]))
+            db = max_abs(to_np(w.nodes.p), to_np(wb.nodes.p))
+            ib = rel_err(to_np(wb.lm_invdepth), to_np(w.lm_invdepth))
+            check(dj <= ENTRY_POS_ATOL[dtype] and cj <= ENTRY_COST_RTOL[dtype],
+                  f"phase 12 (a) {name} {dtype}: {dj:.3g} m, cost {cj:.3g} from JAX")
+            check(db <= ENTRY_POS_ATOL[dtype] and ib <= ENTRY_COST_RTOL[dtype]
+                  and float(c) == float(cb),
+                  f"phase 12 (a) {name} {dtype}: {db:.3g} m, inverse depths {ib:.3g} from "
+                  f"the block path")
+            ms = timed(lambda: [forward(*p) for _ in range(ENTRY_REPS)])[1] / ENTRY_REPS
+            ms_b = timed(lambda: [block_step(*p) for _ in range(ENTRY_REPS)])[1] / ENTRY_REPS
+            _, n, dev_ms, wall, busy = profiled(lambda: forward(*p))
+            _, n_b, dev_ms_b, wall_b, busy_b = profiled(lambda: block_step(*p))
+            log(f"phase 12 (a) forward {name} {dtype} ({smi}): dense {ms:.3f} ms "
+                f"(mean of {ENTRY_REPS}, synced host clock), {n} launches, busy {busy:.4f}; "
+                f"block path {ms_b:.3f} ms, {n_b} launches, busy {busy_b:.4f}; from JAX "
+                f"{dj:.3g} m, cost {cj:.3g}; from the block path {db:.3g} m, inverse depths "
+                f"{ib:.3g}; repeated bit for bit")
+
+
+def phase_dryrun(dev):
+    """Phase 12 (b)-(c): ``entry.dryrun_multichip(n)`` across n ``gloo``
+    ranks on ``dev`` for n = 2 and 4 and, where the machine has the cards,
+    across n ``nccl`` ranks, one a card; every world spawned once, all at
+    the same time, and meanwhile the same in one process with n shards.
+    Every rank's results bit for bit rank 0's, within DIST_POS_ATOL of the
+    one-process run with its decisions."""
+    import torch
+
+    from ic_gvins_tpu_torch.entry import dryrun_multichip
+
+    smi = card()
+    cards = torch.cuda.device_count()
+    runs = [("gloo", n, [dev] * n) for n in DRYRUN_SHARDS]
+    runs += [("nccl", n, [torch.device("cuda", r) for r in range(n)])
+             for n in DRYRUN_SHARDS if n <= cards]
+    threads = max(1, (os.cpu_count() or 1) // sum(n for _, n, _ in runs))
+    one, res, ms_one = {}, {}, {}
+
+    def launch(i):
+        """Spawn run i with runs i + 1, ... and then the one-process runs
+        started while its ranks run."""
+        if i == len(runs):
+            for n in DRYRUN_SHARDS:
+                one[n], ms_one[n] = timed(lambda: dryrun_result(dryrun_multichip(n, dev)))
+            return
+        backend, world, devices = runs[i]
+        res[i], _ = spawn_ranks(world, "dryrun", devices, os.path.join(ROOT, "build", "phase12",
+                                                                       backend),
+                                backend=backend, threads=threads, meanwhile=lambda: launch(i + 1))
+
+    t0 = time.perf_counter()
+    launch(0)
+    wall = time.perf_counter() - t0
+    for n in DRYRUN_SHARDS:
+        r = one[n]
+        log(f"phase 12 (b) dryrun_multichip({n}) in one process ({smi}): {ms_one[n]:.1f} ms "
+            f"(while the ranks ran); round decisions {r['round']['decisions'].tolist()}, BA "
+            f"costs {r['ba']['cost'].tolist()}, batch costs {r['batch']['stats'][1].tolist()}")
+    for i, (backend, world, devices) in enumerate(runs):
+        tag = f"phase 12 ({'b' if backend == 'gloo' else 'c'}) {backend}, {world} ranks"
+        check(same_bits(res[i]), f"{tag}: the ranks' results differ from rank 0's")
+        check(all(int(r["klt_launches"]) == 0 for r in res[i]), f"{tag} launched the KLT kernel")
+        r0, ref = res[i][0], one[world]
+        errs = {}
+        for part in ("round", "ba", "batch"):
+            errs[part] = max_abs(r0[part]["nodes"]["p"], ref[part]["nodes"]["p"])
+            check(errs[part] <= DIST_POS_ATOL, f"{tag}: {part} {errs[part]:.3g} m from one process")
+        for part in ("round", "ba"):
+            check(np.array_equal(r0[part]["decisions"], ref[part]["decisions"]),
+                  f"{tag}: {part} decisions differ from one process")
+        check(np.array_equal(r0["batch"]["stats"][2:], ref["batch"]["stats"][2:]),
+              f"{tag}: batch decisions differ from one process")
+        log(f"{tag} ({smi}): every rank's results bit for bit rank 0's; round / BA / batch "
+            f"{errs['round']:.3g} / {errs['ba']:.3g} / {errs['batch']:.3g} m from one process, "
+            f"its decisions; rank 0 {float(r0['time']['ms']):.1f} ms")
+    log(f"phase 12 (b)-(c): {sum(n for _, n, _ in runs)} ranks of {len(runs)} worlds at once, "
+        f"spawn to end {wall:.1f} s")
+    if cards < min(DRYRUN_SHARDS):
+        log(f"phase 12 (c) nccl: not run ({cards} card(s) visible)")
+    else:
+        for n in DRYRUN_SHARDS:
+            if n > cards:
+                log(f"phase 12 (c) nccl, {n} ranks: not run ({cards} card(s) visible)")
 
 
 @contextmanager
@@ -2451,9 +2612,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    fixtures = (FIXTURE, ESTIMATOR_FIXTURE, ODO_FIXTURE, SIM_FIXTURE, URBAN_FIXTURE,
+                PARALLEL_FIXTURE, F32_FIXTURE, ENTRY_FIXTURE)
     if not os.path.isdir(os.path.join(ROOT, "ic_gvins_tpu_torch")) or not all(
-            os.path.exists(f) for f in (FIXTURE, ESTIMATOR_FIXTURE, ODO_FIXTURE, SIM_FIXTURE,
-                                        URBAN_FIXTURE, PARALLEL_FIXTURE, F32_FIXTURE)):
+            os.path.exists(f) for f in fixtures):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
@@ -2513,6 +2675,13 @@ def main():
                                 "batch": {**batch64["result"], "ms": batch64["ms"]}}, fx)
         check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 11 launched the KLT kernel")
         log(f"phase 11 wall: {time.perf_counter() - t11:.1f} s")
+        # phase 12: the entry point and its dry run
+        klt_cuda.lk_track_bidirectional.launches = 0
+        t12 = time.perf_counter()
+        phase_entry(dev)
+        phase_dryrun(dev)
+        check(klt_cuda.lk_track_bidirectional.launches == 0, "phase 12 launched the KLT kernel")
+        log(f"phase 12 wall: {time.perf_counter() - t12:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 8 klt at the urban replay's shape (320x240, 120 feature slots, 4 images): "

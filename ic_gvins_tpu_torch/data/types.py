@@ -8,6 +8,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 
 class ImuSeq(NamedTuple):
     """IMU increment series (dtheta = gyro increment, dvel = specific-force
@@ -17,6 +19,20 @@ class ImuSeq(NamedTuple):
     dt: torch.Tensor  # [..., N] interval lengths (s)
     dtheta: torch.Tensor  # [..., N, 3] rad
     dvel: torch.Tensor  # [..., N, 3] m/s
+
+    @property
+    def n(self) -> int:
+        """Samples in the series."""
+        return self.time.shape[-1]
+
+    def slice(self, start: int, size: int) -> "ImuSeq":
+        """``size`` samples from ``start`` as JAX's ``dynamic_slice`` takes
+        them: a negative start counts from the end, and the start moves
+        into [0, n - size] so that the slice fits."""
+        start = int(start) + (self.n if start < 0 else 0)
+        start = min(max(start, 0), self.n - size)
+        return ImuSeq(self.time.narrow(-1, start, size), self.dt.narrow(-1, start, size),
+                      self.dtheta.narrow(-2, start, size), self.dvel.narrow(-2, start, size))
 
 
 class NavState(NamedTuple):
@@ -29,6 +45,15 @@ class NavState(NamedTuple):
     v: torch.Tensor  # [..., 3]
     bg: torch.Tensor  # [..., 3] gyro bias (rad/s)
     ba: torch.Tensor  # [..., 3] accel bias (m/s^2)
+
+    @staticmethod
+    def zero(dtype=torch.float64, device=None) -> "NavState":
+        """The state at the origin at rest, identity attitude, zero biases,
+        on ``device`` (``cuda:0`` unless told)."""
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        return NavState(time=torch.zeros((), **kw), p=torch.zeros(3, **kw),
+                        q=torch.tensor([1.0, 0.0, 0.0, 0.0], **kw), v=torch.zeros(3, **kw),
+                        bg=torch.zeros(3, **kw), ba=torch.zeros(3, **kw))
 
     def index(self, i) -> "NavState":
         """The state(s) at index ``i`` of the leading axis."""

@@ -65,10 +65,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libicgvins_native_{key.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless this source and flag set is built already."""
+def build(force: bool = False) -> Path:
+    """Compile the library when ``force`` is set, or when the library of
+    this source and flag set is absent or older than a source."""
     so = library_path()
-    if so.exists():
+    if not force and so.exists() and all(
+            so.stat().st_mtime >= (_DIR / name).stat().st_mtime for name in SOURCES):
         return so
     cxx = shutil.which("g++")
     if cxx is None:

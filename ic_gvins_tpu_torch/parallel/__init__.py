@@ -25,6 +25,7 @@ collectives.
 """
 
 import datetime
+import time
 
 import torch
 import torch.distributed as dist
@@ -48,6 +49,49 @@ def shutdown_distributed():
     """Leave the process group, if this process joined one."""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn(world: int, target, args=(), timeout: float = 400.0, meanwhile=None):
+    """Run ``target(rank, world, init, *args)`` in ``world`` processes
+    started with the ``spawn`` method (the caller may have initialized
+    CUDA), ``init`` a rendezvous on a free local port for
+    ``init_distributed``; run ``meanwhile()`` here while they run. Kills
+    them all when they have not finished in ``timeout`` s, and raises
+    then or when one failed. Returns what ``meanwhile`` returned."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=target, args=(r, world, init, *args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    ref = None
+    try:
+        if meanwhile is not None:
+            ref = meanwhile()
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+    if hung:
+        raise RuntimeError(f"{len(hung)} of {world} ranks did not end within {timeout:.0f} s")
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"ranks of a {world}-rank run failed: exit codes {codes}")
+    return ref
 
 
 class Mesh:
@@ -177,7 +221,7 @@ def assemble(parts, mesh: Mesh) -> list:
     for (x, start, _), (_, _, at, n) in zip(parts, layout):
         if start is None and mesh.rank != 0:
             continue
-        row = x[0].numel() * x.element_size() if start is not None and x.dim() else 0
+        row = x.shape[1:].numel() * x.element_size() if start is not None and x.dim() else 0
         off = at + (start * row if start is not None else 0)
         src = x.contiguous().reshape(-1).view(torch.uint8)
         buf[off:off + src.numel()] = src

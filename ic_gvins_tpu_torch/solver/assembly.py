@@ -19,9 +19,11 @@ accept/reject decision.
 from typing import NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..common.rotation import mv
 from ..data.types import IntegrationParams, NavState
+from ..factors.manifold import node_boxplus
 from ..factors.residuals import (
     bias_soft_residual_jac,
     gnss_residual_jac,
@@ -110,6 +112,56 @@ def obs_mask(window: Window):
 def newest_node_index(window: Window) -> torch.Tensor:
     N = window.n_nodes
     return N - 1 - torch.argmax(torch.flip(window.node_valid, [0]).to(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# One interval's residual as a function of its local delta
+# ---------------------------------------------------------------------------
+
+
+def _preint_res(window: Window, params: IntegrationParams, i, delta30):
+    """Unwhitened residual [15] of interval ``i`` at nodes i and i + 1
+    moved by ``delta30`` = [node i (15) | node i + 1 (15)]."""
+    s0 = node_boxplus(_nodes_at(window, i), delta30[:NODE_DOF])
+    s1 = node_boxplus(_nodes_at(window, i + 1), delta30[NODE_DOF:])
+    pre = pytree.tree_map(lambda x: x[i], window.preint)
+    return preint_residual(pre, s0, s1, params, whiten=False)
+
+
+def _preint_res_odo(window: Window, params: IntegrationParams, i, delta31):
+    """The odometer variant: residual [19] over [node i (15) | node i + 1
+    (15) | sodo (1)]; the window's one scale enters both ends."""
+    s0 = node_boxplus(_nodes_at(window, i), delta31[:NODE_DOF])
+    s1 = node_boxplus(_nodes_at(window, i + 1), delta31[NODE_DOF:2 * NODE_DOF])
+    sodo = window.sodo + delta31[2 * NODE_DOF]
+    pre = pytree.tree_map(lambda x: x[i], window.preint)
+    return preint_odo_residual(pre, s0, sodo, s1, sodo, params, whiten=False)
+
+
+def preint_sqrt_info(window: Window) -> torch.Tensor:
+    """[N-1, R, R] whitening matrices of all intervals."""
+    return sqrt_information(window.preint.cov)
+
+
+def preint_res_fn(window: Window):
+    """(residual function, delta dimension) for this window's
+    preintegration variant: ``fn(window, params, i, delta)``, unwhitened."""
+    if is_odo_window(window):
+        return _preint_res_odo, 2 * NODE_DOF + 1
+    return _preint_res, 2 * NODE_DOF
+
+
+def preint_delta_cols(window: Window) -> torch.Tensor:
+    """[N-1, C] global columns of each interval's factor delta."""
+    N = window.n_nodes
+    dev = window.node_valid.device
+    node_cols = (torch.arange(N, device=dev)[:, None] * NODE_DOF
+                 + torch.arange(NODE_DOF, device=dev)[None, :])
+    cols = torch.cat([node_cols[:-1], node_cols[1:]], 1)
+    if is_odo_window(window):
+        cols = torch.cat([cols, torch.full((N - 1, 1), N * NODE_DOF + SODO, dtype=cols.dtype,
+                                           device=dev)], 1)
+    return cols
 
 
 # ---------------------------------------------------------------------------
@@ -477,6 +529,16 @@ def assemble_blocks(
     return Hxx, gx, Hxl, hll, gl, cost
 
 
+def assemble(window: Window, prior: Prior, cfg: SolverConfig, params: IntegrationParams,
+             flags: RobustFlags):
+    """The dense normal equations H [D, D], g [D] (H dx = -g) and the
+    robust cost: ``assemble_blocks`` composed into one matrix, for callers
+    that solve the whole system in one program (``entry.py``)."""
+    Hxx, gx, Hxl, hll, gl, cost = assemble_blocks(window, prior, cfg, params, flags)
+    H = torch.cat([torch.cat([Hxx, Hxl], 1), torch.cat([Hxl.T, torch.diag(hll)], 1)], 0)
+    return H, torch.cat([gx, gl]), cost
+
+
 def free_mask_states(window: Window, cfg: SolverConfig) -> torch.Tensor:
     """[DX] bool: state dims free to move (valid nodes + enabled ext/td,
     and the odometer scale in odometer windows)."""
@@ -492,6 +554,12 @@ def free_mask_states(window: Window, cfg: SolverConfig) -> torch.Tensor:
 def free_mask_lm(window: Window) -> torch.Tensor:
     """[L] bool: landmarks free to move (valid with >= 1 live factor)."""
     return window.lm_valid & (torch.sum(obs_mask(window), 1) > 0)
+
+
+def free_mask(window: Window, cfg: SolverConfig) -> torch.Tensor:
+    """1.0 for parameters free to move, 0.0 for frozen or invalid ones,
+    in the window's dtype."""
+    return torch.cat([free_mask_states(window, cfg), free_mask_lm(window)]).to(window.nodes.p.dtype)
 
 
 def _ns_solve(A, b, iters: int = 26, refine: int = 3):
@@ -555,3 +623,13 @@ def schur_solve_blocks(Hxx, gx, Hxl, hll, gl, lam, mesh=None):
     dx_x = -solve_reduced(H_red, g_red)
     dx_l = -(gl + Hxl.T @ dx_x) / hll_d
     return dx_x, dx_l
+
+
+def schur_solve(H, g, dim_x: int, lam):
+    """Solve (H + lam diag(H)) dx = -g for the dense system of ``assemble``
+    by eliminating its trailing diagonal landmark block (diagonal clamped
+    at 1e-12), through ``schur_solve_blocks``. Returns dx [D]."""
+    dx_x, dx_l = schur_solve_blocks(
+        H[:dim_x, :dim_x], g[:dim_x], H[:dim_x, dim_x:],
+        torch.clamp(torch.diagonal(H)[dim_x:], min=1e-12), g[dim_x:], lam)
+    return torch.cat([dx_x, dx_l])

@@ -30,10 +30,10 @@ def _bilinear(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
     y0c = torch.clamp(y0.to(torch.int64), 0, h - 2)
     flat = img.reshape(-1)
     idx = y0c * w + x0c
-    i00 = flat[idx]
-    i01 = flat[idx + 1]
-    i10 = flat[idx + w]
-    i11 = flat[idx + w + 1]
+    shape, idx = idx.shape, idx.reshape(-1)
+    # index_select: the same reads as flat[idx], several times faster on the CPU
+    i00, i01, i10, i11 = (flat.index_select(0, i).reshape(shape)
+                          for i in (idx, idx + 1, idx + w, idx + w + 1))
     return (
         i00 * (1 - ay) * (1 - ax)
         + i01 * (1 - ay) * ax

@@ -15,13 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_solver import ITERATIVE, assert_rel, one_torch_thread, port, tiny  # noqa: F401
+from test_torch_solver import ITERATIVE, assert_rel, one_torch_thread, port, stored, tiny  # noqa: F401
 
 from ic_gvins_tpu.common import earth as jearth
 from ic_gvins_tpu.common import rotation as jrot
 from ic_gvins_tpu.factors import marginalization as jmarg
 from ic_gvins_tpu.ins import mechanization as jmech
-from ic_gvins_tpu.solver import lm as jlm
 from ic_gvins_tpu.solver import window as jwin
 from ic_gvins_tpu_torch.common import earth as tearth
 from ic_gvins_tpu_torch.common import rotation as trot
@@ -264,19 +263,22 @@ def test_optimize_is_optimize_impl(tiny, do_cull):  # noqa: F811
     assert int(stats[2]) == int(rstats[2])
 
 
-def test_optimize_phases_match_jax(tiny):  # noqa: F811
-    """Phase 1 (robust, then the chi2 gates) and phase 2 as two calls."""
-    win, prior, cfg, params = tiny
-    jw1, j1, jn = jlm.optimize_phase1(win, prior, cfg, params, iters=20)
-    jw2, j2 = jlm.optimize_phase2(jw1, prior, cfg, params, iters=20)
+def test_optimize_phases_match_jax(tiny, stored):  # noqa: F811
+    """Phase 1 (robust, then the chi2 gates) and phase 2 as two calls,
+    against the JAX package's ``optimize_phase1`` / ``optimize_phase2`` of
+    the same window, stored in ``tests/fixtures/torch_tiny.npz``
+    (``tools/make_torch_fixture.py --tiny``)."""
+    ref = stored["phases"]
+    jw1, j1, jn = ref["window1"], ref["stats1"], ref["n_culled"]
+    jw2, j2 = ref["window2"], ref["stats2"]
     tport = port(tiny)
     tw1, t1, tn = tlm.optimize_phase1(*tport, iters=20)
     tw2, t2 = tlm.optimize_phase2(tw1, *tport[1:], iters=20)
     assert int(tn) == int(jn)
-    np.testing.assert_array_equal(tw1.obs_valid.numpy(), np.asarray(jw1.obs_valid))
-    assert_rel(tw1.gnss_std, jw1.gnss_std, ITERATIVE, "gnss_std")
+    np.testing.assert_array_equal(tw1.obs_valid.numpy(), jw1["obs_valid"])
+    assert_rel(tw1.gnss_std, jw1["gnss_std"], ITERATIVE, "gnss_std")
     for js, ts, jw, tw in ((j1, t1, jw1, tw1), (j2, t2, jw2, tw2)):
-        assert (ts.iters_run, ts.accepted) == (int(js.iters_run), int(js.accepted))
-        assert_rel(ts.cost1, js.cost1, ITERATIVE, "cost1")
+        assert (ts.iters_run, ts.accepted) == (int(js["iters_run"]), int(js["accepted"]))
+        assert_rel(ts.cost1, js["cost1"], ITERATIVE, "cost1")
         for k in ("p", "q", "v"):
-            assert_rel(getattr(tw.nodes, k), getattr(jw.nodes, k), ITERATIVE, k)
+            assert_rel(getattr(tw.nodes, k), jw["nodes"][k], ITERATIVE, k)

@@ -179,3 +179,19 @@ def test_failed_build_raises(monkeypatch, tmp_path):
                  lambda: tfileio.FileLoader(path, 2), lambda: tkaist._load_table(path)):
         with pytest.raises(RuntimeError, match="g\\+\\+"):
             make()
+
+
+def test_build_rebuilds_when_asked_or_stale(monkeypatch, tmp_path):
+    """``build()`` reuses a library newer than its sources; ``force=True``
+    compiles it again, and so does a library older than a source (into a
+    build directory of its own here)."""
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    so = tnative.build()
+    assert so.parent == tmp_path / "build"
+    stamp = so.stat().st_mtime_ns
+    assert tnative.build() == so and so.stat().st_mtime_ns == stamp
+    assert tnative.build(force=True) == so and so.stat().st_mtime_ns != stamp
+    src = min((tnative._DIR / name).stat().st_mtime for name in tnative.SOURCES)
+    os.utime(so, (src - 60.0, src - 60.0))
+    stale = so.stat().st_mtime_ns
+    assert tnative.build() == so and so.stat().st_mtime_ns > stale

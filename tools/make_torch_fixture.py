@@ -13,8 +13,9 @@ observing node) -> ``optimize_impl(iters=20)`` -> ``marginalize_and_slide``.
 ``--tiny`` writes the same for ``_tiny_problem()``'s 6-node x 16-landmark
 window into ``tests/fixtures/torch_tiny.npz``, with the JAX results of
 ``tests/test_torch_solver.py``'s ``preint_case`` (two simulated intervals
-preintegrated from its perturbed window) and ``optimized``
-(``optimize_impl`` of that window, 20 iterations). The port's CPU tests
+preintegrated from its perturbed window), ``optimized``
+(``optimize_impl`` of that window, 20 iterations) and ``phases``
+(``optimize_phase1`` then ``optimize_phase2`` of it, 20 iterations each). The port's CPU tests
 load them instead of rebuilding them in every test process (~2 minutes
 of XLA compiles each).
 """
@@ -155,9 +156,14 @@ def solver_cases(win, prior, cfg, params):
     state0 = state0._replace(ba=state0.ba + 1e-3)
     want = jax.jit(jax.vmap(jpre.preintegrate, in_axes=(None, 0, 0)))(params, state0, imu)
     jw, (j1, j2, jn) = jax.jit(lambda *a: jlm.optimize_impl(*a, iters=20))(win, prior, cfg, params)
+    pw1, p1, pn = jlm.optimize_phase1(win, prior, cfg, params, iters=20)
+    pw2, p2 = jlm.optimize_phase2(pw1, prior, cfg, params, iters=20)
     return {"preint_case": {"imu": to_numpy(imu), "want": to_numpy(want)},
             "optimized": {"window": to_numpy(jw), "stats1": to_numpy(j1),
-                          "stats2": to_numpy(j2), "n_culled": np.asarray(jn)}}
+                          "stats2": to_numpy(j2), "n_culled": np.asarray(jn)},
+            "phases": {"window1": to_numpy(pw1), "stats1": to_numpy(p1),
+                       "n_culled": np.asarray(pn), "window2": to_numpy(pw2),
+                       "stats2": to_numpy(p2)}}
 
 
 def main():
