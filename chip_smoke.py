@@ -1270,7 +1270,8 @@ def phase_batch(dev):
     priors = multi_seq.stack_priors([prior] * BATCH)
     batched = lambda: multi_seq.optimize_batch(windows, priors, cfg, params, iters=ITERS)  # noqa: E731
     singles = lambda ws: [optimize(w, prior, cfg, params, iters=ITERS) for w in ws]  # noqa: E731
-    batched()  # the first call warms vmap and the solver libraries
+    batched()  # the first call of a key runs eagerly and warms vmap and the libraries
+    batched()  # the second captures the CUDA graphs that the later calls replay
     (out, (c0, c1, ncull, iters, acc)), ms_b = timed(batched)
     ref, ms_s = timed(lambda: singles(wins))
     _, n_b, dev_b, wall_b, busy_b = profiled(batched)
@@ -1305,7 +1306,7 @@ def phase_batch(dev):
         f"({ms_s / ms_b:.2f} x); launches {n_b} for the batched call, {n_s} for the first "
         f"{BATCH // 4} single rounds (profiled); busy share {busy_b:.4f} batched ({dev_b:.2f} "
         f"ms of device time in {wall_b:.2f} ms profiled), {busy_s:.4f} single ({dev_s:.2f} "
-        f"in {wall_s:.2f} ms)")
+        f"in {wall_s:.2f} ms); the batch's chains {multi_seq.graph_counts()}")
     return wins, prior, cfg, params, fx, dict(
         ms=ms_b, launches=n_b, busy=busy_b, single_ms=ms_s,
         result={"p": to_np(out.nodes.p), "stats": np.stack([to_np(x) for x in (ncull, iters, acc)])})
@@ -2585,7 +2586,8 @@ def phase_batch_f32(dev, wins, prior, cfg, params, f64):
     windows = multi_seq.stack_windows(wins)
     priors = multi_seq.stack_priors([prior] * BATCH)
     batched = lambda: multi_seq.optimize_batch(windows, priors, cfg, params, iters=ITERS)  # noqa: E731
-    batched()  # warm-up
+    batched()  # warm-up: eager, then the graphs' capture
+    batched()
     (out, (c0, c1, ncull, iters, acc)), ms_b = timed(batched)
     _, n_b, dev_b, wall_b, busy_b = profiled(batched)
     ref, ms_s = timed(lambda: [optimize(w, prior, cfg, params, iters=ITERS) for w in wins])

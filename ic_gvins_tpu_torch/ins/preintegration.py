@@ -241,14 +241,16 @@ def preintegrate(
 def sqrt_information(cov: torch.Tensor) -> torch.Tensor:
     """Upper-triangular sqrt information chol(cov^-1)^T, computed on the
     diagonally normalized correlation matrix (cov = D Cn D):
-    chol(cov^-1)^T = chol(Cn^-1)^T D^-1."""
+    chol(cov^-1)^T = chol(Cn^-1)^T D^-1. The factorizations leave their
+    status on the device: a covariance they fail on gives NaN, as in JAX."""
     d = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1), min=1e-30))
     s = 1.0 / d
     cov_n = cov * s[..., :, None] * s[..., None, :]
-    info_n = torch.linalg.inv(cov_n)
+    info_n, bad = torch.linalg.inv_ex(cov_n)
     info_n = 0.5 * (info_n + info_n.transpose(-1, -2))
-    u_n = torch.linalg.cholesky(info_n).transpose(-1, -2)
-    return u_n * s[..., None, :]
+    u_n, bad_chol = torch.linalg.cholesky_ex(info_n)
+    failed = ((bad != 0) | (bad_chol != 0))[..., None, None]
+    return torch.where(failed, torch.nan, u_n.transpose(-1, -2) * s[..., None, :])
 
 
 def _corrected_terms(preint: PreintData, state0: NavState, state1: NavState,

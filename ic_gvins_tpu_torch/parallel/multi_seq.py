@@ -17,7 +17,8 @@ Each sequence keeps its own control, as under ``jax.vmap``: its own
 accept / reject, damping ``lam``, chi2 gates and culls, and its own early
 exit. A sequence that has stopped is frozen while the others go on, and
 the loop ends when every sequence has stopped. The host reads the stop
-flags once per iteration for all B sequences.
+flags once per iteration for all B sequences. On a CUDA device the loop's
+chains are replayed from CUDA graphs once a batch's shapes come again.
 
 The solver allocates its blocks like the window's tensors
 (``new_zeros``) and writes them through adjacent index tensors, so its
@@ -65,39 +66,173 @@ def _take_vars(win_new: Window, win: Window, accept) -> Window:
     )
 
 
-def lm_run_batch(windows: Window, priors: Prior, cfg: SolverConfig,
-                 params: IntegrationParams, flags: RobustFlags, iters: int,
-                 lam0: float = 1e-4):
-    """``solver.lm.lm_run`` over a batch of windows, each with its own
-    damping, accept / reject and early exit. Returns (windows, (cost0,
-    cost1, lam, accepted, iters_run)), each statistic a [B] tensor."""
-    cost_of = _batched(lambda w, p: robust_cost(w, p, cfg, params, flags))
-    step = _batched(lambda w, p, lam: lm_step(w, p, cfg, params, flags, lam))
-    cost_init = cost_of(windows, priors)
-    B = cost_init.shape[0]
-    dev = cost_init.device
-    cost = cost_init
-    lam = torch.full((B,), lam0, dtype=cost.dtype, device=dev)
-    naccept = torch.zeros(B, dtype=torch.int64, device=dev)
-    it = torch.zeros(B, dtype=torch.int64, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    for _ in range(iters):
-        win_new, cost_new, dx_max = step(windows, priors, lam)
+# ---------------------------------------------------------------------------
+# The chains: pure functions of the batch's state (a dict of the inputs
+# ``windows``, ``priors``, ``cfg``, ``params`` and the loop's [B] tensors)
+# that return the entries they change. A run takes each chain's result as
+# the new state, eagerly or from a CUDA graph.
+
+
+def _lm_init(flags: RobustFlags):
+    """The phase's starting cost and loop state (``solver.lm.lm_run``'s
+    damping 1e-4)."""
+    def chain(s):
+        cost = _batched(lambda w, p: robust_cost(w, p, s["cfg"], s["params"], flags))(
+            s["windows"], s["priors"])
+        B, dev = cost.shape[0], cost.device
+        zeros = lambda dtype: torch.zeros(B, dtype=dtype, device=dev)  # noqa: E731
+        return dict(cost0=cost, cost=cost,
+                    lam=torch.full((B,), 1e-4, dtype=cost.dtype, device=dev),
+                    naccept=zeros(torch.int64), it=zeros(torch.int64), done=zeros(torch.bool))
+    return chain
+
+
+def _lm_iteration(flags: RobustFlags):
+    """One LM iteration of every sequence, through the stop flags."""
+    def chain(s):
+        windows, cost, lam, done = s["windows"], s["cost"], s["lam"], s["done"]
+        step = _batched(lambda w, p, lam: lm_step(w, p, s["cfg"], s["params"], flags, lam))
+        win_new, cost_new, dx_max = step(windows, s["priors"], lam)
         active = ~done
         accept = active & (cost_new < cost)
-        windows = _take_vars(win_new, windows, accept)
         converged = accept & (torch.abs(cost - cost_new)
                               < FUNCTION_TOLERANCE * torch.clamp(cost, min=1e-30))
-        cost = torch.where(accept, cost_new, cost)
         lam_next = torch.where(accept, torch.clamp(lam / 3.0, min=1e-10), lam * 4.0)
         lam = torch.where(active, lam_next, lam)
-        naccept = naccept + accept.to(torch.int64)
-        it = it + active.to(torch.int64)
         done = done | (active & (converged | (dx_max < PARAMETER_TOLERANCE)
                                  | (lam > LAMBDA_MAX)))
-        if bool(done.all()):  # one host read per iteration for all sequences
+        return dict(windows=_take_vars(win_new, windows, accept),
+                    cost=torch.where(accept, cost_new, cost), lam=lam,
+                    naccept=s["naccept"] + accept.to(torch.int64),
+                    it=s["it"] + active.to(torch.int64), done=done, all_done=done.all())
+    return chain
+
+
+def _cull(s):
+    windows, n_culled = _batched(lambda w: chi2_cull(w, s["cfg"]))(s["windows"])
+    return dict(windows=windows, n_culled=n_culled)
+
+
+# ---------------------------------------------------------------------------
+# Running the chains. On a CUDA device each chain is captured once per key
+# (the inputs' structure, each tensor's shape, strides, dtype and device,
+# every other leaf's value; the chain's flags and constants) and replayed:
+# one graph launch in place of ~1900 kernel launches for an LM iteration.
+# A key runs eagerly the first time it comes and is captured the second,
+# so one-off shapes pay no capture. Elsewhere every chain runs eagerly.
+
+_COUNTS = {"captured": 0, "replayed": 0, "eager": 0}
+_SEEN: set = set()
+_PLANS: dict = {}
+
+
+def graph_counts() -> dict:
+    """This process's chains captured, replayed from a graph and run
+    eagerly (an LM iteration is one chain)."""
+    return dict(_COUNTS)
+
+
+def reset_graphs():
+    """Forget every key and captured graph, and zero ``graph_counts``."""
+    _SEEN.clear()
+    _PLANS.clear()
+    _COUNTS.update(captured=0, replayed=0, eager=0)
+
+
+class _Eager:
+    """Runs each chain as it comes; its result becomes the state."""
+
+    def __init__(self, state: dict):
+        self.state = state
+
+    def run(self, name, chain):
+        _COUNTS["eager"] += 1
+        self.state.update(chain(self.state))
+
+    def take(self, *keys):
+        return tuple(self.state[k] for k in keys)
+
+
+class _Graphed:
+    """One key's state in static buffers and its chains as CUDA graphs,
+    which write their results back into the same buffers. The graphs share
+    one memory pool: they never run at once."""
+
+    def __init__(self, state: dict, device):
+        self.device = device
+        self.state = pytree.tree_map(
+            lambda x: torch.empty_like(x) if torch.is_tensor(x) else x, state)
+        self.graphs = {}
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def load(self, state: dict):
+        for k, v in state.items():
+            _copy_into(self.state[k], v)
+        return self
+
+    def run(self, name, chain):
+        graph = self.graphs.get(name)
+        with torch.cuda.device(self.device):
+            if graph is None:
+                graph = self.graphs[name] = self._capture(chain)
+            graph.replay()
+        _COUNTS["replayed"] += 1
+
+    def _capture(self, chain):
+        # warm up on a side stream (lazy library set-up; the shapes of new
+        # state entries), dropping the result so that the state stays where
+        # the first replay starts from
+        here, side = torch.cuda.current_stream(), torch.cuda.Stream()
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            out = chain(self.state)
+        here.wait_stream(side)
+        for k, v in out.items():
+            if k not in self.state:
+                self.state[k] = pytree.tree_map(torch.empty_like, v)
+        del out
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            for k, v in chain(self.state).items():
+                _copy_into(self.state[k], v)
+        _COUNTS["captured"] += 1
+        return graph
+
+    def take(self, *keys):
+        """Fresh copies: the next call overwrites the buffers."""
+        return tuple(pytree.tree_map(torch.clone, self.state[k]) for k in keys)
+
+
+def _copy_into(dst, src):
+    pytree.tree_map(lambda d, s: d.copy_(s) if torch.is_tensor(d) else d, dst, src)
+
+
+def _runner(windows, priors, cfg, params):
+    state = dict(windows=windows, priors=priors, cfg=cfg, params=params)
+    leaves, spec = pytree.tree_flatten(state)
+    device = windows.nodes.p.device
+    if device.type != "cuda":
+        return _Eager(state)
+    key = (spec, tuple((tuple(x.shape), x.stride(), x.dtype, x.device) if torch.is_tensor(x)
+                       else x for x in leaves))
+    if key not in _SEEN:
+        _SEEN.add(key)
+        return _Eager(state)
+    if key not in _PLANS:
+        _PLANS[key] = _Graphed(state, device)
+    return _PLANS[key].load(state)
+
+
+def _lm_phase(run, flags: RobustFlags, iters: int):
+    """``solver.lm.lm_run`` over the batch, each sequence with its own
+    damping, accept / reject and early exit: (cost0, cost1, lam, accepted,
+    iters_run), each a [B] tensor."""
+    run.run(("init", flags), _lm_init(flags))
+    for _ in range(iters):
+        run.run(("iteration", flags), _lm_iteration(flags))
+        if bool(run.state["all_done"]):  # one host read per iteration for all sequences
             break
-    return windows, (cost_init, cost, lam, naccept, it)
+    return run.take("cost0", "cost", "lam", "naccept", "it")
 
 
 def optimize_batch(windows: Window, priors: Prior, cfg: SolverConfig,
@@ -108,11 +243,11 @@ def optimize_batch(windows: Window, priors: Prior, cfg: SolverConfig,
     ``params`` are shared. Returns (windows, (cost0, cost1, n_culled,
     iters_run, accepted)), each a [B] tensor, as the JAX function does."""
     it1, it2 = phase_iters(iters)
-    windows, s1 = lm_run_batch(windows, priors, cfg, params,
-                               RobustFlags(gnss_kernel=True, reproj_kernel=True), it1)
-    windows, n_culled = _batched(lambda w: chi2_cull(w, cfg))(windows)
-    windows, s2 = lm_run_batch(windows, priors, cfg, params,
-                               RobustFlags(gnss_kernel=False, reproj_kernel=True), it2)
+    run = _runner(windows, priors, cfg, params)
+    s1 = _lm_phase(run, RobustFlags(gnss_kernel=True, reproj_kernel=True), it1)
+    run.run(("cull",), _cull)
+    s2 = _lm_phase(run, RobustFlags(gnss_kernel=False, reproj_kernel=True), it2)
+    windows, n_culled = run.take("windows", "n_culled")
     return windows, (s1[0], s2[1], n_culled, s1[4] + s2[4], s1[3] + s2[3])
 
 

@@ -585,7 +585,10 @@ def solve_reduced(H_red, g_red):
     Cholesky in float64, the Newton-Schulz iteration in float32, as the
     JAX package does. Scaled to unit diagonal, the system keeps full
     precision in float32, where the raw information (~1e2 GNSS to ~1e10
-    bias links) would exceed its 7 digits."""
+    bias links) would exceed its 7 digits. A system that is not positive
+    definite gives a NaN step, as JAX's Cholesky does, which LM rejects:
+    the factor's status stays on the device, so the solve never waits on
+    the host."""
     dtype = H_red.dtype
     if dtype not in (torch.float64, torch.float32):
         raise TypeError(f"solve_reduced takes float64 or float32, not {dtype}")
@@ -594,8 +597,13 @@ def solve_reduced(H_red, g_red):
     H_n = H_red * s[:, None] * s[None, :]
     H_n = H_n + eps * torch.eye(H_n.shape[0], dtype=dtype, device=H_n.device)
     if dtype == torch.float64:
-        L = torch.linalg.cholesky(H_n)
-        y = torch.cholesky_solve((s * g_red)[:, None], L)[:, 0]
+        L, info = torch.linalg.cholesky_ex(H_n)
+        L = torch.where((info == 0)[..., None, None], L, torch.nan)
+        # two triangular solves, as JAX's ``cho_solve``: on the card a
+        # batched ``cholesky_solve`` goes through MAGMA, which no CUDA graph
+        # can capture
+        z = torch.linalg.solve_triangular(L, (s * g_red)[..., None], upper=False)
+        y = torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
     else:
         y = _ns_solve(H_n, s * g_red)
     return s * y

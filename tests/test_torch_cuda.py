@@ -1,6 +1,7 @@
 """PyTorch port on the card: the Hopper KLT kernel against its plain
-PyTorch version, and the solver's fixed-order sum. Imports neither jax nor the JAX package, so it also runs
-on a machine without them:
+PyTorch version, the solver's fixed-order sum, and ``optimize_batch``
+replayed from CUDA graphs against its eager run. Imports neither jax nor
+the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
@@ -9,7 +10,11 @@ Without a CUDA device every test here skips."""
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
+import chip_smoke
+from ic_gvins_tpu_torch.convert import cast
+from ic_gvins_tpu_torch.parallel import multi_seq
 from ic_gvins_tpu_torch.solver.assembly import index_sum_
 from ic_gvins_tpu_torch.vision import klt, klt_cuda
 from ic_gvins_tpu_torch.vision.pyramid import build_pyramid
@@ -162,3 +167,62 @@ def test_index_sum_repeats_on_the_card(dtype):
     ref = torch.zeros((24, 6, 6), dtype=torch.float64).index_add_(0, idx, src.to(dtype).double())
     tol = 1e-4 if dtype == torch.float32 else 1e-12
     assert float((outs[0].cpu().double() - ref).abs().max()) <= tol
+
+
+def _batch(dev, dtype=torch.float64, order=None):
+    """``chip_smoke``'s phase-9 batch of 32 perturbed 24 x 192 windows (in
+    ``order``) and its ``optimize_batch`` call."""
+    wins, prior, cfg, params, _ = chip_smoke.parallel_round(dev)
+    prior, cfg, params = (cast(x, dtype) for x in (prior, cfg, params))
+    wins = [cast(wins[b], dtype) for b in (order or range(len(wins)))]
+    windows = multi_seq.stack_windows(wins)
+    priors = multi_seq.stack_priors([prior] * len(wins))
+    return lambda: multi_seq.optimize_batch(windows, priors, cfg, params, iters=chip_smoke.ITERS)
+
+
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_optimize_batch_graph_equals_eager(dtype):
+    """The same key three times: run eagerly, captured, replayed. The
+    captured and the replayed call give the eager call's windows and
+    statistics bit for bit; each chain is captured once, and every chain
+    the eager call ran is replayed in each later call."""
+    dev = _device()
+    call = _batch(dev, dtype)
+    multi_seq.reset_graphs()
+    eager = call()
+    n1 = multi_seq.graph_counts()
+    assert n1["captured"] == n1["replayed"] == 0 and n1["eager"] > 0
+    captured = call()
+    n2 = multi_seq.graph_counts()
+    assert n2 == dict(captured=5, replayed=n1["eager"], eager=n1["eager"])
+    replayed = call()
+    assert multi_seq.graph_counts() == dict(captured=5, replayed=2 * n1["eager"],
+                                           eager=n1["eager"])
+    assert _same_bits(captured, eager) and _same_bits(replayed, eager)
+    assert eager[0].nodes.p.dtype == dtype and len(set(eager[1][3].tolist())) > 1
+
+
+@pytest.mark.cuda
+def test_optimize_batch_graph_refills_its_buffers():
+    """A second batch of the same key, other values in every slot, through
+    the graphs captured on the first gives its own eager run bit for bit,
+    and leaves the first batch's returned tensors as they were."""
+    dev = _device()
+    other = _batch(dev, order=range(31, -1, -1))
+    multi_seq.reset_graphs()
+    ref = other()
+    multi_seq.reset_graphs()
+    first = _batch(dev)
+    first()
+    out = first()
+    kept = pytree.tree_map(torch.clone, out)
+    assert multi_seq.graph_counts()["captured"] == 5
+    got = other()
+    assert multi_seq.graph_counts()["captured"] == 5
+    assert _same_bits(got, ref) and not _same_bits(got, out)
+    assert _same_bits(out, kept)

@@ -92,6 +92,24 @@ def test_optimize_batch_matches_sequential_and_jax(fx):
     assert_rel(c1, ref["stats"]["cost1"], ITERATIVE, "cost1")
 
 
+def test_optimize_batch_on_the_cpu_runs_eagerly(fx):
+    """Off the card no chain is captured: the same key twice runs every
+    chain eagerly both times, with the same bits and the JAX counts."""
+    wins, prs, cfg, params = _batch6(fx)
+    windows, priors = multi_seq.stack_windows(wins), multi_seq.stack_priors(prs)
+    multi_seq.reset_graphs()
+    first = multi_seq.optimize_batch(windows, priors, cfg, params, iters=8)
+    n = multi_seq.graph_counts()
+    second = multi_seq.optimize_batch(windows, priors, cfg, params, iters=8)
+    assert n["captured"] == n["replayed"] == 0 and n["eager"] >= 5
+    assert multi_seq.graph_counts() == dict(captured=0, replayed=0, eager=2 * n["eager"])
+    assert all(torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(first),
+                                                  torch.utils._pytree.tree_leaves(second)))
+    ref = unflatten(fx, "batch6/out/")
+    for k, got in zip(("n_culled", "iters_run", "accepted"), second[1][2:]):
+        np.testing.assert_array_equal(got.numpy(), ref["stats"][k], err_msg=k)
+
+
 def test_batch_members_stop_on_their_own(fx):
     """Phase 9's first four sequences of the 24 x 192 round: a sequence
     that stops is frozen while the others go on, as under jax.vmap; the

@@ -407,3 +407,36 @@ def test_index_sum_on_the_cpu_is_index_add():
     acc = torch.from_numpy(rng.standard_normal((5, 6, 6)))
     got = tasm.index_sum_(acc.clone(), idx, src)
     assert torch.equal(got, acc.clone().index_add_(0, idx, src))
+
+
+def test_solve_reduced_of_a_system_that_is_not_positive_definite_is_nan_as_in_jax():
+    """A float64 reduced system that Cholesky fails on gives a NaN step, as
+    ``jnp.linalg.cholesky`` does, instead of raising."""
+    rng = np.random.default_rng(11)
+    q, _ = np.linalg.qr(rng.standard_normal((12, 12)))
+    H = q @ np.diag(np.r_[np.linspace(1.0, 5.0, 11), -2.0]) @ q.T
+    g = rng.standard_normal(12)
+    got = tasm.solve_reduced(torch.from_numpy(H), torch.from_numpy(g))
+    want = np.asarray(jax.jit(jasm.solve_reduced)(jnp.asarray(H), jnp.asarray(g)))
+    assert torch.isnan(got).all() and np.isnan(want).all()
+    spd = H + 3.0 * np.eye(12)
+    assert_rel(tasm.solve_reduced(torch.from_numpy(spd), torch.from_numpy(g)),
+               jax.jit(jasm.solve_reduced)(jnp.asarray(spd), jnp.asarray(g)), CLOSED, "y")
+
+
+def test_lm_run_rejects_the_steps_of_a_failed_factor(tiny):
+    """A prior that makes the damped system indefinite fails every factor:
+    each NaN step is rejected, the damping grows fourfold per iteration and
+    the window stays where it was; nothing raises."""
+    win, prior, cfg, params = port(tiny)
+    H = prior.H.clone()
+    H[0:3, 0:3] -= 1e12 * torch.eye(3, dtype=H.dtype)
+    prior = prior._replace(H=H)
+    flags = tasm.RobustFlags(True, True)
+    _, cost_new, _ = tlm.lm_step(win, prior, cfg, params, flags, 1e-4)
+    assert torch.isnan(cost_new)
+    out, st = tlm.lm_run(win, prior, cfg, params, flags, iters=5)
+    assert (st.iters_run, st.accepted) == (5, 0) and st.lam == pytest.approx(1e-4 * 4.0**5)
+    assert torch.isfinite(st.cost0) and torch.equal(st.cost1, st.cost0)
+    assert all(torch.equal(a, b) for a, b in zip(out.nodes, win.nodes))
+    assert torch.equal(out.lm_invdepth, win.lm_invdepth)
