@@ -444,7 +444,10 @@ STATS_KEYS = ("t", "cost0", "cost1", "iterations", "iters_run", "n_obs", "culled
 def summarize(est):
     """What the fixture holds of a finished run of either package's
     ``Estimator``: trajectory, per-round stats rows, the final window's
-    active nodes and its landmark inverse depths."""
+    active nodes and its landmark inverse depths, and the observations and
+    slots cleared with marginalized anchors (``dead_cleared``; a JAX
+    estimator counts them once ``tests/dead_rows.clear_dead_rows`` wraps
+    it)."""
     times, ps, qs = est.trajectory()
     w, n = est.window, est.n_nodes
     out = {"traj_t": np.asarray(times, np.float64), "traj_p": np.asarray(ps, np.float64),
@@ -455,6 +458,9 @@ def summarize(est):
            "lm_invdepth": to_np(w.lm_invdepth), "lm_valid": to_np(w.lm_valid)}
     for k in ("p", "q", "v", "bg", "ba"):
         out[f"nodes_{k}"] = to_np(getattr(w.nodes, k))[:n]
+    cleared = getattr(est, "_dead_cleared", None)
+    if cleared is not None:
+        out["dead_cleared"] = np.array([cleared["observations"], cleared["slots"]], np.int64)
     return out
 
 
@@ -487,8 +493,10 @@ def compare_estimator(got, ref, att_atol=TRAJ_ATT_ATOL):
     """Hold a run of the port's ``Estimator`` (``feed`` log +
     ``summarize``) against the JAX run of the fixture: the event log
     (engine state, nodes, keyframes, landmark slots, rounds), node times
-    and keyframe flags after every event, and per round the LM's accepted
-    steps and iterations and the culling counts must be identical; the
+    and keyframe flags after every event, per round the LM's accepted
+    steps and iterations and the culling counts, and where the fixture
+    holds them the observations and slots cleared with marginalized
+    anchors must be identical; the
     trajectory must agree within TRAJ_POS_ATOL and ``att_atol``. Raises
     on a difference; returns (max position error m, max attitude error
     rad)."""
@@ -500,6 +508,10 @@ def compare_estimator(got, ref, att_atol=TRAJ_ATT_ATOL):
     cols = [STATS_KEYS.index(k) for k in STATS_KEYS if k not in ("cost0", "cost1", "reproj_rms")]
     check(np.array_equal(got["stats"][:, cols], ref["stats"][:, cols]),
           "per-round LM steps, iterations or culling counts differ from JAX")
+    if "dead_cleared" in ref:
+        check(np.array_equal(got["dead_cleared"], ref["dead_cleared"]),
+              f"observations / slots cleared with marginalized anchors "
+              f"{got['dead_cleared']} differ from JAX's {ref['dead_cleared']}")
     dp = float(np.max(np.linalg.norm(got["traj_p"] - ref["traj_p"], axis=1)))
     dq = float(np.max(quat_angle(got["traj_q"], ref["traj_q"])))
     check(dp <= TRAJ_POS_ATOL, f"trajectory positions {dp:.3g} m from JAX (> {TRAJ_POS_ATOL})")
@@ -1069,10 +1081,11 @@ def resume_estimator(s, path, dev, start, dtype=None):
 def continuation_ref(full, ck, n_rounds):
     """What a run resumed after event ``ck`` of the run ``full`` (feed log +
     summary) must reproduce: its later events (stats rows count from 0 again:
-    they are not checkpointed), its last ``n_rounds`` stats rows and its
-    whole trajectory (checkpointed)."""
+    they are not checkpointed, nor is ``dead_cleared``), its last
+    ``n_rounds`` stats rows and its whole trajectory (checkpointed)."""
     log = full["log"][ck + 1:].copy()
     log[:, 4] -= full["log"][ck, 4]
+    full = {k: v for k, v in full.items() if k != "dead_cleared"}
     return {**full, "log": log, "log_node_t": full["log_node_t"][ck + 1:],
             "log_node_kf": full["log_node_kf"][ck + 1:], "stats": full["stats"][-n_rounds:]}
 

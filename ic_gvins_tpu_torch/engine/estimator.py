@@ -433,6 +433,9 @@ class Estimator:
         # host clock: "preintegrate", "optimize", "marginalize"
         self.stage_ms: dict[str, list[float]] = {
             "preintegrate": [], "optimize": [], "marginalize": []}
+        # observations and landmark slots that died with a marginalized
+        # anchor and were cleared before the slots were freed (cumulative)
+        self._dead_cleared = {"observations": 0, "slots": 0}
         # None: on (20 m) in float32, off in float64, as the JAX package
         # picks it by its x64 switch
         thr = cfg.recenter_threshold
@@ -1394,13 +1397,28 @@ class Estimator:
                 del self.odo_t[:k], self.odo_v[:k]
         if was_kf:
             self.n_keyframes -= 1
+        obs_valid = self._npw("obs_valid")
+        if dead_slots:
+            # the slide keeps the dead landmarks' observations at the other
+            # nodes; clear their rows, as remove_node does, so that a new
+            # feature given the slot carries only its own
+            w = self.window
+            dead = np.zeros(w.lm_valid.shape[0], bool)
+            dead[dead_slots] = True
+            dead = self._dev(dead, torch.bool)[:, None]
+            self.window = w._replace(obs_valid=w.obs_valid & ~dead,
+                                     obs_uv=w.obs_uv.masked_fill(dead[..., None], 0.0),
+                                     obs_vel=w.obs_vel.masked_fill(dead[..., None], 0.0))
+            self._dead_cleared["observations"] += int(obs_valid[dead_slots].sum())
+            self._dead_cleared["slots"] += len(dead_slots)
+            obs_valid = obs_valid.copy()
+            obs_valid[dead_slots] = False
         # free landmark slots that died with the marginalized anchor
         dead = set(dead_slots)
         for fid in [f for f, s in self.lm_slot.items() if s in dead]:
             self._free_lm_slot(fid)
         # landmarks anchored at the old node 0 that were not valid yet also
         # die; reclaim any slot with no observation
-        obs_valid = self._npw("obs_valid")
         lm_valid = self._npw("lm_valid")
         for fid in [f for f, s in self.lm_slot.items()
                     if not lm_valid[s] and obs_valid[s].sum() == 0]:

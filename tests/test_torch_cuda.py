@@ -1,11 +1,16 @@
 """PyTorch port on the card: the Hopper KLT kernel against its plain
-PyTorch version, the solver's fixed-order sum, and ``optimize_batch``
-replayed from CUDA graphs against its eager run. Imports neither jax nor
+PyTorch version, the solver's fixed-order sum, ``optimize_batch``
+replayed from CUDA graphs against its eager run, and a full-width
+``Pipeline`` replay clearing the landmark slots that die with a
+marginalized anchor. Imports neither jax nor
 the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Without a CUDA device every test here skips."""
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -226,3 +231,47 @@ def test_optimize_batch_graph_refills_its_buffers():
     assert multi_seq.graph_counts()["captured"] == 5
     assert _same_bits(got, ref) and not _same_bits(got, out)
     assert _same_bits(out, kept)
+
+
+@pytest.mark.cuda
+def test_pipeline_replay_clears_dead_slots_at_full_width():
+    """The benchmark's robot drive (``gvbench/configs/icgvins_robot.json``:
+    1278 x 1022 at 20 Hz, 24 node x 192 landmark slots, float64) through
+    the port's ``Pipeline`` on the card until a landmark slot that died
+    with its marginalized anchor has been given to a new feature: after
+    every marginalization the dead rows hold no observation, and after
+    every frame no live slot holds one at a node before its anchor."""
+    from gvbench.drivers import replay
+    from gvbench.gen import streams
+    from ic_gvins_tpu_torch.engine.pipeline import Pipeline
+
+    dev = _device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    read = lambda *p: json.loads(open(os.path.join(root, "gvbench", *p)).read())  # noqa: E731
+    config, traffic = read("configs", "icgvins_robot.json"), read("traffic", "replay_robot.json")
+    traffic["duration_s"] = 40.0
+    s = streams.make_replay(config, traffic, 2**31 + 14, dev)
+    pipe = Pipeline(replay.engine_config(config), device=dev,
+                    use_clahe=config["pipeline"]["use_clahe"])
+    est = pipe.est
+    real, dead_ever, reused = est._marginalize_oldest, set(), set()
+
+    def marginalize_oldest():
+        lm_ref, lm_valid = est._npw("lm_ref"), est._npw("lm_valid")
+        dead = [sl for sl in est.lm_slot.values() if lm_ref[sl] == 0 and lm_valid[sl]]
+        real()
+        assert not est._npw("obs_valid")[dead].any()
+        assert not bool(est.window.obs_uv[dead].any()) and not bool(est.window.obs_vel[dead].any())
+        dead_ever.update(dead)
+
+    est._marginalize_oldest = marginalize_oldest
+    feed = replay.Feed(s)
+    while not feed.done() and not reused:
+        feed.step(pipe)
+        obs, ref = est._npw("obs_valid"), est._npw("lm_ref")
+        slots = np.fromiter(est.lm_slot.values(), np.int64)
+        before = obs[slots] & (np.arange(obs.shape[1])[None, :] < ref[slots][:, None])
+        assert not before.any(), feed.t_last
+        reused = set(slots.tolist()) & dead_ever
+    assert reused, "no dead slot was given out again"
+    assert est._dead_cleared["observations"] > 0

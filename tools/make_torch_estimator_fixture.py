@@ -36,7 +36,11 @@ its middle event (``ckpt``, the pickle's bytes, and ``ckpt_event``).
 
 Each scenario stores its streams, its 200 Hz truth positions, the
 configuration as JSON, and the run's event log (``chip_smoke.feed``), stats
-rows, trajectory and final window (``chip_smoke.summarize``). Each scenario
+rows, trajectory and final window (``chip_smoke.summarize``). Every JAX
+estimator runs with ``tests/dead_rows.clear_dead_rows``: the rows of the
+landmark slots that die with a marginalized anchor are cleared, as the port
+clears them (the JAX package keeps them; the count is stored as
+``dead_cleared``). Each scenario
 runs in its own process (an XLA:CPU process that replays several
 estimators can crash its compiler), all at once.
 
@@ -58,7 +62,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 import chip_smoke  # noqa: E402
+from dead_rows import clear_dead_rows  # noqa: E402
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 SMALL = ("gins", "gvins", "outage", "pipeline", "odo_small", "gap_native")
@@ -230,7 +236,7 @@ def estimator_scenario(name):
             s["sprites"] = np.asarray(sprites)
             s.update(_cam_poses(traj, params, ftimes, ext_p, ext_q))
 
-    est = Estimator(cfg)
+    est = clear_dead_rows(Estimator(cfg))
     if "ext_p" in s:
         est.window = est.window._replace(ext_p=jnp.asarray(s["ext_p"]),
                                          ext_q=jnp.asarray(s["ext_q"]))
@@ -302,11 +308,11 @@ def odo_small_scenario():
     imu = sim.corrupt_imu(imu, params, ki, jnp.array([2e-4, -1e-4, 3e-4]),
                           jnp.array([5e-3, -8e-3, 2e-3]))
     gnss = sim.simulate_gnss(traj, params, jnp.zeros(3), 0.0, duration, 1.0, std=0.05, key=kg)
-    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu, sc.get("imu_gap")),
+    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
          "gnss_t": np.asarray(gnss.time), "gnss_p": np.asarray(gnss.p),
          "gnss_std": np.asarray(gnss.std), "frame_t": np.zeros(0),
          **_odometer(traj, params, duration, ko), **_truth(traj, params, duration)}
-    est = Estimator(cfg)
+    est = clear_dead_rows(Estimator(cfg))
     return s, _run(est, s, None)
 
 
@@ -348,13 +354,14 @@ def pipeline_scenario():
         ftimes.append(nf)
         nf += 0.2
     ftimes = np.asarray(ftimes)
-    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu, sc.get("imu_gap")),
+    s = {"cfg_json": np.array(_cfg_json(cfg)), **_imu_streams(imu),
          "gnss_t": np.asarray(gnss.time), "gnss_p": np.asarray(gnss.p),
          "gnss_std": np.asarray(gnss.std), "frame_t": ftimes, "sprites": np.asarray(lms),
          **_truth(traj, params, duration),
          **_cam_poses(traj, params, ftimes, jnp.zeros(3), ext_q / jnp.linalg.norm(ext_q))}
 
     pipe = Pipeline(cfg, use_pallas=False, use_clahe=False)
+    clear_dead_rows(pipe.est)
 
     def on_frame(j):
         img = sim.render_sprite_frame_np(intr, res, s["sprites"], s["cam_t_wc"][j],

@@ -31,6 +31,12 @@ Parts, one process each (x64 is a process-wide switch of JAX):
   (``--outages 60 75 --checkpoint-every 60``); ``--urban-duration`` cuts
   it shorter.
 
+The estimators of ``recenter``, ``est32`` and ``defaults32`` run with
+``tests/dead_rows.clear_dead_rows``, the port's clearing of the landmark
+slots that die with a marginalized anchor (the JAX package keeps their
+observations). ``urban32`` is the JAX runner's own replay, without it:
+``chip_smoke.py`` only prints it beside the port's.
+
     python tools/make_torch_f32_fixture.py              # all parts (urban32 ~40 min)
     python tools/make_torch_f32_fixture.py --only est32 # rerun parts; the file keeps the others'
 """
@@ -50,6 +56,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import chip_smoke  # noqa: E402
+from dead_rows import clear_dead_rows  # noqa: E402
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 OUT = os.path.join(FIXTURES, "torch_f32.npz")
@@ -187,7 +194,7 @@ def _estimator(s):
     from ic_gvins_tpu.engine import config as jconfig
     from ic_gvins_tpu.engine.estimator import Estimator
 
-    est = Estimator(chip_smoke.engine_config(jconfig, s))
+    est = clear_dead_rows(Estimator(chip_smoke.engine_config(jconfig, s)))
     if "ext_p" in s:
         est.window = est.window._replace(ext_p=jnp.asarray(s["ext_p"]),
                                          ext_q=jnp.asarray(s["ext_q"]))
