@@ -186,8 +186,10 @@ def slide_window(window: Window, prior: Prior):
         """Roll the node block of the last axis; freed node dims become 0."""
         return _node_dx(x, N, lambda node: _roll_clear(node, node.dim() - 2, 0.0))
 
+    # rows, then columns: the new H is laid out row-major like the old, so
+    # that the solver's products with it take the same path every round
     pr = prior._replace(
-        H=roll_dx(roll_dx(prior.H).T).T,
+        H=roll_dx(roll_dx(prior.H.T).T),
         g=roll_dx(prior.g),
         lin_nodes=_map_tree(_roll1, prior.lin_nodes),
     )
@@ -254,7 +256,7 @@ def remove_node(window: Window, prior: Prior, i: int, n_active: int):
         return _node_dx(x, N, lambda node: torch.cat(
             [node[..., :i, :], node[..., i + 1:, :], torch.zeros_like(node[..., :1, :])], -2))
 
-    pr = prior._replace(H=drop_dx(drop_dx(prior.H).T).T, g=drop_dx(prior.g),
+    pr = prior._replace(H=drop_dx(drop_dx(prior.H.T).T), g=drop_dx(prior.g),
                         lin_nodes=_map_tree(drop, prior.lin_nodes))
     return win, pr
 
@@ -301,6 +303,6 @@ def insert_node(window: Window, prior: Prior, i: int, n_active: int):
         return _node_dx(x, N, lambda node: torch.cat(
             [node[..., :i, :], torch.zeros_like(node[..., :1, :]), node[..., i:-1, :]], -2))
 
-    pr = prior._replace(H=ins_dx(ins_dx(prior.H).T).T, g=ins_dx(prior.g),
+    pr = prior._replace(H=ins_dx(ins_dx(prior.H.T).T), g=ins_dx(prior.g),
                         lin_nodes=_map_tree(ins, prior.lin_nodes))
     return win, pr

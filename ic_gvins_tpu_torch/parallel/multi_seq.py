@@ -29,14 +29,18 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..data.types import IntegrationParams
+from ..solver import graphs
 from ..solver.assembly import RobustFlags, robust_cost
 from ..solver.lm import (
     FUNCTION_TOLERANCE,
     LAMBDA_MAX,
     PARAMETER_TOLERANCE,
+    PHASE1_FLAGS,
+    PHASE2_FLAGS,
     chi2_cull,
     lm_step,
     phase_iters,
+    take_vars,
 )
 from ..solver.window import Prior, SolverConfig, Window
 from . import assemble
@@ -44,26 +48,6 @@ from . import assemble
 
 def _batched(fn):
     return torch.func.vmap(fn)
-
-
-def _where(mask, a, b):
-    """Per sequence: leaves of ``a`` where ``mask`` [B], else of ``b``."""
-    def pick(x, y):
-        return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y)
-    return pytree.tree_map(pick, a, b)
-
-
-def _take_vars(win_new: Window, win: Window, accept) -> Window:
-    """The window fields an LM step changes, from ``win_new`` where the
-    step was accepted."""
-    return win._replace(
-        nodes=_where(accept, win_new.nodes, win.nodes),
-        ext_p=_where(accept, win_new.ext_p, win.ext_p),
-        ext_q=_where(accept, win_new.ext_q, win.ext_q),
-        td=_where(accept, win_new.td, win.td),
-        sodo=_where(accept, win_new.sodo, win.sodo),
-        lm_invdepth=_where(accept, win_new.lm_invdepth, win.lm_invdepth),
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +85,7 @@ def _lm_iteration(flags: RobustFlags):
         lam = torch.where(active, lam_next, lam)
         done = done | (active & (converged | (dx_max < PARAMETER_TOLERANCE)
                                  | (lam > LAMBDA_MAX)))
-        return dict(windows=_take_vars(win_new, windows, accept),
+        return dict(windows=take_vars(win_new, windows, accept),
                     cost=torch.where(accept, cost_new, cost), lam=lam,
                     naccept=s["naccept"] + accept.to(torch.int64),
                     it=s["it"] + active.to(torch.int64), done=done, all_done=done.all())
@@ -114,113 +98,27 @@ def _cull(s):
 
 
 # ---------------------------------------------------------------------------
-# Running the chains. On a CUDA device each chain is captured once per key
-# (the inputs' structure, each tensor's shape, strides, dtype and device,
-# every other leaf's value; the chain's flags and constants) and replayed:
-# one graph launch in place of ~1900 kernel launches for an LM iteration.
-# A key runs eagerly the first time it comes and is captured the second,
-# so one-off shapes pay no capture. Elsewhere every chain runs eagerly.
+# Running the chains (``solver/graphs.py``): on a CUDA device each chain is
+# captured once per key and replayed, one graph launch in place of ~1900
+# kernel launches for an LM iteration of the batch.
 
-_COUNTS = {"captured": 0, "replayed": 0, "eager": 0}
-_SEEN: set = set()
-_PLANS: dict = {}
+_GRAPHS = graphs.Graphs()
 
 
 def graph_counts() -> dict:
-    """This process's chains captured, replayed from a graph and run
-    eagerly (an LM iteration is one chain)."""
-    return dict(_COUNTS)
+    """This process's batched chains captured, replayed from a graph and
+    run eagerly (an LM iteration is one chain)."""
+    return _GRAPHS.graph_counts()
 
 
 def reset_graphs():
     """Forget every key and captured graph, and zero ``graph_counts``."""
-    _SEEN.clear()
-    _PLANS.clear()
-    _COUNTS.update(captured=0, replayed=0, eager=0)
-
-
-class _Eager:
-    """Runs each chain as it comes; its result becomes the state."""
-
-    def __init__(self, state: dict):
-        self.state = state
-
-    def run(self, name, chain):
-        _COUNTS["eager"] += 1
-        self.state.update(chain(self.state))
-
-    def take(self, *keys):
-        return tuple(self.state[k] for k in keys)
-
-
-class _Graphed:
-    """One key's state in static buffers and its chains as CUDA graphs,
-    which write their results back into the same buffers. The graphs share
-    one memory pool: they never run at once."""
-
-    def __init__(self, state: dict, device):
-        self.device = device
-        self.state = pytree.tree_map(
-            lambda x: torch.empty_like(x) if torch.is_tensor(x) else x, state)
-        self.graphs = {}
-        self.pool = torch.cuda.graph_pool_handle()
-
-    def load(self, state: dict):
-        for k, v in state.items():
-            _copy_into(self.state[k], v)
-        return self
-
-    def run(self, name, chain):
-        graph = self.graphs.get(name)
-        with torch.cuda.device(self.device):
-            if graph is None:
-                graph = self.graphs[name] = self._capture(chain)
-            graph.replay()
-        _COUNTS["replayed"] += 1
-
-    def _capture(self, chain):
-        # warm up on a side stream (lazy library set-up; the shapes of new
-        # state entries), dropping the result so that the state stays where
-        # the first replay starts from
-        here, side = torch.cuda.current_stream(), torch.cuda.Stream()
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            out = chain(self.state)
-        here.wait_stream(side)
-        for k, v in out.items():
-            if k not in self.state:
-                self.state[k] = pytree.tree_map(torch.empty_like, v)
-        del out
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            for k, v in chain(self.state).items():
-                _copy_into(self.state[k], v)
-        _COUNTS["captured"] += 1
-        return graph
-
-    def take(self, *keys):
-        """Fresh copies: the next call overwrites the buffers."""
-        return tuple(pytree.tree_map(torch.clone, self.state[k]) for k in keys)
-
-
-def _copy_into(dst, src):
-    pytree.tree_map(lambda d, s: d.copy_(s) if torch.is_tensor(d) else d, dst, src)
+    _GRAPHS.reset()
 
 
 def _runner(windows, priors, cfg, params):
     state = dict(windows=windows, priors=priors, cfg=cfg, params=params)
-    leaves, spec = pytree.tree_flatten(state)
-    device = windows.nodes.p.device
-    if device.type != "cuda":
-        return _Eager(state)
-    key = (spec, tuple((tuple(x.shape), x.stride(), x.dtype, x.device) if torch.is_tensor(x)
-                       else x for x in leaves))
-    if key not in _SEEN:
-        _SEEN.add(key)
-        return _Eager(state)
-    if key not in _PLANS:
-        _PLANS[key] = _Graphed(state, device)
-    return _PLANS[key].load(state)
+    return _GRAPHS.runner(state, windows.nodes.p.device)
 
 
 def _lm_phase(run, flags: RobustFlags, iters: int):
@@ -244,9 +142,9 @@ def optimize_batch(windows: Window, priors: Prior, cfg: SolverConfig,
     iters_run, accepted)), each a [B] tensor, as the JAX function does."""
     it1, it2 = phase_iters(iters)
     run = _runner(windows, priors, cfg, params)
-    s1 = _lm_phase(run, RobustFlags(gnss_kernel=True, reproj_kernel=True), it1)
+    s1 = _lm_phase(run, PHASE1_FLAGS, it1)
     run.run(("cull",), _cull)
-    s2 = _lm_phase(run, RobustFlags(gnss_kernel=False, reproj_kernel=True), it2)
+    s2 = _lm_phase(run, PHASE2_FLAGS, it2)
     windows, n_culled = run.take("windows", "n_culled")
     return windows, (s1[0], s2[1], n_culled, s1[4] + s2[4], s1[3] + s2[3])
 

@@ -6,16 +6,22 @@
   are masked out,
 * phase 2: GNSS without kernel, reprojection with kernel.
 
-The JAX ``lax.while_loop`` is a Python loop that reads its stop flag on
-the host once per iteration.
+The JAX ``lax.while_loop`` is a Python loop over chains
+(``solver/graphs.py``) that keep the loop's state (cost, damping, counts,
+stop flag) on the device; the host reads the stop flag once per
+iteration. On a CUDA device the chains are replayed from CUDA graphs once
+a window's shapes come again; on the CPU, and landmark-sharded, they run
+eagerly.
 """
 
 from typing import NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..data.types import IntegrationParams
 from ..parallel import pmax, psum
+from . import graphs
 from .assembly import (
     RobustFlags,
     assemble_blocks,
@@ -32,6 +38,10 @@ from .window import Prior, SolverConfig, Window, apply_delta
 FUNCTION_TOLERANCE = 1e-6  # |cost drop| < tol * cost on an accepted step
 PARAMETER_TOLERANCE = 1e-8  # max |dx| below this
 LAMBDA_MAX = 1e10  # trust region collapsed
+
+# phase 1 (and the initialization solve): both robust kernels; phase 2: no GNSS kernel
+PHASE1_FLAGS = RobustFlags(gnss_kernel=True, reproj_kernel=True)
+PHASE2_FLAGS = RobustFlags(gnss_kernel=False, reproj_kernel=True)
 
 
 class LMStats(NamedTuple):
@@ -64,6 +74,103 @@ def lm_step(window: Window, prior: Prior, cfg: SolverConfig,
     return win_new, cost_new, dx_max
 
 
+def take_vars(win_new: Window, win: Window, accept) -> Window:
+    """The window fields an LM step changes (``apply_delta``'s), from
+    ``win_new`` where the step was accepted: ``accept`` is 0-dim, or [B]
+    over a batch's leading axis."""
+    def pick(a, b):
+        return torch.where(accept.reshape(accept.shape + (1,) * (a.dim() - accept.dim())), a, b)
+
+    return win._replace(**{k: pytree.tree_map(pick, getattr(win_new, k), getattr(win, k))
+                           for k in ("nodes", "ext_p", "ext_q", "td", "sodo", "lm_invdepth")})
+
+
+# ---------------------------------------------------------------------------
+# The loop as chains (``solver/graphs.py``): pure functions of the state (a
+# dict of the inputs ``window``, ``prior``, ``cfg``, ``params`` and the
+# loop's 0-dim tensors) that return the entries they change. Every decision
+# is made in float64 on the values the host would read, so a chain's
+# damping, accept / reject and stop flags are the host loop's bit for bit.
+
+
+def _lm_init(flags: RobustFlags, lam0: float, mesh):
+    """The phase's starting cost and loop state."""
+    def chain(s):
+        cost = robust_cost(s["window"], s["prior"], s["cfg"], s["params"], flags, mesh=mesh)
+        zero = lambda dtype: torch.zeros((), dtype=dtype, device=cost.device)  # noqa: E731
+        return dict(cost0=cost, cost=cost,
+                    lam=torch.full((), lam0, dtype=torch.float64, device=cost.device),
+                    naccept=zero(torch.int64), it=zero(torch.int64), done=zero(torch.bool))
+    return chain
+
+
+def _lm_iteration(flags: RobustFlags, mesh):
+    """One LM iteration through the stop flags; after ``done`` it changes
+    nothing."""
+    def chain(s):
+        window, cost, lam, done = s["window"], s["cost"], s["lam"], s["done"]
+        win_new, cost_new, dx_max = lm_step(window, s["prior"], s["cfg"], s["params"], flags,
+                                            lam, mesh=mesh)
+        c, c_new = cost.double(), cost_new.double()
+        active = ~done
+        accept = active & (c_new < c)
+        converged = accept & (torch.abs(c - c_new)
+                              < FUNCTION_TOLERANCE * torch.clamp(c, min=1e-30))
+        lam_next = torch.where(accept, torch.clamp(lam / 3.0, min=1e-10), lam * 4.0)
+        lam = torch.where(active, lam_next, lam)
+        done = done | (active & (converged | (dx_max.double() < PARAMETER_TOLERANCE)
+                                 | (lam > LAMBDA_MAX)))
+        return dict(window=take_vars(win_new, window, accept),
+                    cost=torch.where(accept, cost_new, cost), lam=lam,
+                    naccept=s["naccept"] + accept.to(torch.int64),
+                    it=s["it"] + active.to(torch.int64), done=done)
+    return chain
+
+
+def _cull(mesh):
+    def chain(s):
+        window, n_culled = chi2_cull(s["window"], s["cfg"], mesh=mesh)
+        return dict(window=window, n_culled=n_culled)
+    return chain
+
+
+_GRAPHS = graphs.Graphs()
+
+
+def graph_counts() -> dict:
+    """This process's single-window chains captured, replayed from a graph
+    and run eagerly (an LM iteration is one chain)."""
+    return _GRAPHS.graph_counts()
+
+
+def reset_graphs():
+    """Forget every key and captured graph, and zero ``graph_counts``."""
+    _GRAPHS.reset()
+
+
+def _runner(window: Window, prior: Prior, cfg: SolverConfig, params: IntegrationParams, mesh):
+    """The run of a window's chains. The landmark-sharded loop runs
+    eagerly: its collectives decide on values from every rank."""
+    state = dict(window=window, prior=prior, cfg=cfg, params=params)
+    if mesh is not None:
+        return graphs.Eager(state, _GRAPHS.counts)
+    return _GRAPHS.runner(state, window.nodes.p.device)
+
+
+def _lm_phase(run, flags: RobustFlags, iters: int, lam0: float = 1e-4, mesh=None) -> LMStats:
+    """One LM run over ``run``'s window: ``iters`` iterations at most, the
+    host reading the stop flag after each and the statistics once."""
+    run.run(("init", flags, lam0), _lm_init(flags, lam0, mesh))
+    for _ in range(iters):
+        run.run(("iteration", flags), _lm_iteration(flags, mesh))
+        if bool(run.state["done"]):  # one host read per iteration: the early exit
+            break
+    cost0, cost1 = run.take("cost0", "cost")
+    lam, naccept, it = torch.stack([run.state["lam"], run.state["naccept"].double(),
+                                    run.state["it"].double()]).tolist()
+    return LMStats(cost0=cost0, cost1=cost1, lam=lam, accepted=int(naccept), iters_run=int(it))
+
+
 def lm_run(window: Window, prior: Prior, cfg: SolverConfig,
            params: IntegrationParams, flags: RobustFlags, iters: int,
            lam0: float = 1e-4, mesh=None):
@@ -71,34 +178,9 @@ def lm_run(window: Window, prior: Prior, cfg: SolverConfig,
     ``iters`` is the iteration budget. With a ``mesh`` the landmark sums
     run per shard, then over the shards and the ranks; every decision is
     made once, on values every rank received from one collective."""
-    cost_init = robust_cost(window, prior, cfg, params, flags, mesh=mesh)
-    cost = cost_init
-    lam = lam0
-    naccept = 0
-    it = 0
-    while it < iters:
-        win_new, cost_new, dx_max = lm_step(window, prior, cfg, params, flags, lam, mesh=mesh)
-        # one host read per iteration: the accept decision and stop flags
-        cost_cur_f, cost_new_f, dx_max = (
-            torch.stack([cost, cost_new, dx_max]).tolist()
-        )
-        accept = cost_new_f < cost_cur_f
-        it += 1
-        converged = False
-        if accept:
-            window = win_new
-            cost = cost_new
-            lam = max(lam / 3.0, 1e-10)
-            naccept += 1
-            converged = abs(cost_cur_f - cost_new_f) < FUNCTION_TOLERANCE * max(
-                cost_cur_f, 1e-30
-            )
-        else:
-            lam = lam * 4.0
-        if converged or dx_max < PARAMETER_TOLERANCE or lam > LAMBDA_MAX:
-            break
-    return window, LMStats(cost0=cost_init, cost1=cost, lam=lam,
-                           accepted=naccept, iters_run=it)
+    run = _runner(window, prior, cfg, params, mesh)
+    stats = _lm_phase(run, flags, iters, lam0, mesh)
+    return run.take("window")[0], stats
 
 
 def chi2_cull(window: Window, cfg: SolverConfig, mesh=None):
@@ -147,15 +229,15 @@ def optimize_impl(window: Window, prior: Prior, cfg: SolverConfig,
     ``mesh`` runs it landmark-sharded on a window that holds this rank's
     landmarks (``parallel/lm_sharded.py``). Returns (window, (stats1,
     stats2, n_culled))."""
-    robust = RobustFlags(gnss_kernel=True, reproj_kernel=True)
+    run = _runner(window, prior, cfg, params, mesh)
     if not do_cull:
-        window, stats = lm_run(window, prior, cfg, params, robust, iters, mesh=mesh)
-        return window, (stats, stats, 0)
+        stats = _lm_phase(run, PHASE1_FLAGS, iters, mesh=mesh)
+        return run.take("window")[0], (stats, stats, 0)
     it1, it2 = phase_iters(iters)
-    window, stats1 = lm_run(window, prior, cfg, params, robust, it1, mesh=mesh)
-    window, n_culled = chi2_cull(window, cfg, mesh=mesh)
-    flags2 = RobustFlags(gnss_kernel=False, reproj_kernel=True)
-    window, stats2 = lm_run(window, prior, cfg, params, flags2, it2, mesh=mesh)
+    stats1 = _lm_phase(run, PHASE1_FLAGS, it1, mesh=mesh)
+    run.run(("cull",), _cull(mesh))
+    stats2 = _lm_phase(run, PHASE2_FLAGS, it2, mesh=mesh)
+    window, n_culled = run.take("window", "n_culled")
     return window, (stats1, stats2, n_culled)
 
 
@@ -169,16 +251,14 @@ def optimize_phase1(window: Window, prior: Prior, cfg: SolverConfig,
                     params: IntegrationParams, iters: int = 20):
     """Phase 1 alone (robust kernels, then the chi2 gates), so that the
     two phases can be timed apart. Returns (window, stats1, n_culled)."""
-    window, stats1 = lm_run(window, prior, cfg, params,
-                            RobustFlags(gnss_kernel=True, reproj_kernel=True),
-                            phase_iters(iters)[0])
-    window, n_culled = chi2_cull(window, cfg)
+    run = _runner(window, prior, cfg, params, None)
+    stats1 = _lm_phase(run, PHASE1_FLAGS, phase_iters(iters)[0])
+    run.run(("cull",), _cull(None))
+    window, n_culled = run.take("window", "n_culled")
     return window, stats1, n_culled
 
 
 def optimize_phase2(window: Window, prior: Prior, cfg: SolverConfig,
                     params: IntegrationParams, iters: int = 20):
     """Phase 2 alone (GNSS kernel off). Returns (window, stats2)."""
-    return lm_run(window, prior, cfg, params,
-                  RobustFlags(gnss_kernel=False, reproj_kernel=True),
-                  phase_iters(iters)[1])
+    return lm_run(window, prior, cfg, params, PHASE2_FLAGS, phase_iters(iters)[1])

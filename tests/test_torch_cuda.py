@@ -1,6 +1,7 @@
 """PyTorch port on the card: the Hopper KLT kernel against its plain
-PyTorch version, the solver's fixed-order sum, ``optimize_batch``
-replayed from CUDA graphs against its eager run, and a full-width
+PyTorch version, the solver's fixed-order sum, ``optimize_batch`` and the
+single window's ``lm.optimize`` replayed from CUDA graphs against their
+eager runs, the estimator's rounds replayed, and a full-width
 ``Pipeline`` replay clearing the landmark slots that die with a
 marginalized anchor. Imports neither jax nor
 the JAX package, so it also runs on a machine without them:
@@ -20,6 +21,7 @@ import torch.utils._pytree as pytree
 import chip_smoke
 from ic_gvins_tpu_torch.convert import cast
 from ic_gvins_tpu_torch.parallel import multi_seq
+from ic_gvins_tpu_torch.solver import graphs, lm
 from ic_gvins_tpu_torch.solver.assembly import index_sum_
 from ic_gvins_tpu_torch.vision import klt, klt_cuda
 from ic_gvins_tpu_torch.vision.pyramid import build_pyramid
@@ -231,6 +233,123 @@ def test_optimize_batch_graph_refills_its_buffers():
     assert multi_seq.graph_counts()["captured"] == 5
     assert _same_bits(got, ref) and not _same_bits(got, out)
     assert _same_bits(out, kept)
+
+
+# the estimator's two forms of a round: the initialization solve and the normal round
+FORMS = {"warmup": dict(iters=30, do_cull=False), "normal": dict(iters=chip_smoke.ITERS)}
+
+
+def _window_round(dev, dtype=torch.float64, member=0, form="normal"):
+    """``lm.optimize`` of one member of phase 9's batch, a 24 x 192 window,
+    in ``form``."""
+    wins, prior, cfg, params, _ = chip_smoke.parallel_round(dev)
+    win, prior, cfg, params = (cast(x, dtype) for x in (wins[member], prior, cfg, params))
+    return lambda: lm.optimize(win, prior, cfg, params, **FORMS[form])
+
+
+def _same(a, b) -> bool:
+    """The same tree, tensors bit for bit and every other leaf equal."""
+    (xs, sa), (ys, sb) = pytree.tree_flatten(a), pytree.tree_flatten(b)
+    return sa == sb and all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+                            for x, y in zip(xs, ys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_optimize_graph_equals_eager(dtype, form):
+    """One window's round three times: run eagerly, captured, replayed. The
+    captured and the replayed call give the eager call's window, ``LMStats``
+    and cull count bit for bit; each chain is captured once (the normal
+    round's two inits, two iterations and cull; the initialization solve's
+    init and iteration), and every chain the eager call ran is replayed in
+    each later call."""
+    dev = _device()
+    call = _window_round(dev, dtype, form=form)
+    lm.reset_graphs()
+    eager = call()
+    n1 = lm.graph_counts()
+    assert n1["captured"] == n1["replayed"] == 0 and n1["eager"] > 0
+    captured = call()
+    n_graphs = 5 if FORMS[form].get("do_cull", True) else 2
+    assert lm.graph_counts() == dict(captured=n_graphs, replayed=n1["eager"], eager=n1["eager"])
+    replayed = call()
+    assert lm.graph_counts() == dict(captured=n_graphs, replayed=2 * n1["eager"],
+                                     eager=n1["eager"])
+    assert _same(captured, eager) and _same(replayed, eager)
+    s1, s2, _ = eager[1]
+    assert eager[0].nodes.p.dtype == dtype and s1.accepted > 0 and s2.iters_run > 0
+    assert isinstance(s1.lam, float) and isinstance(s2.iters_run, int)
+
+
+@pytest.mark.cuda
+def test_optimize_graph_refills_its_buffers():
+    """A second window of the same key through the graphs captured on the
+    first gives its own eager round bit for bit, and leaves the first
+    window's returned tensors as they were."""
+    dev = _device()
+    other = _window_round(dev, member=5)
+    lm.reset_graphs()
+    ref = other()
+    lm.reset_graphs()
+    first = _window_round(dev)
+    first()
+    out = first()
+    kept = pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, out)
+    assert lm.graph_counts()["captured"] == 5
+    got = other()
+    assert lm.graph_counts()["captured"] == 5
+    assert _same(got, ref) and not _same(got, out)
+    assert _same(out, kept)
+
+
+def _replay_rounds(dev, n_rounds: int):
+    """The benchmark's robot drive through the port's ``Pipeline`` until
+    ``n_rounds`` estimator rounds have run: each round's statistics,
+    ``lm.graph_counts()`` after it and whether it was a normal round (not
+    the initialization solve)."""
+    from gvbench.drivers import replay
+    from gvbench.gen import streams
+    from ic_gvins_tpu_torch.engine.pipeline import Pipeline
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    read = lambda *p: json.loads(open(os.path.join(root, "gvbench", *p)).read())  # noqa: E731
+    config, traffic = read("configs", "icgvins_robot_node.json"), read("traffic",
+                                                                        "replay_robot.json")
+    traffic["duration_s"] = 25.0
+    s = streams.make_replay(config, traffic, 2**31 + 15, dev)
+    pipe = Pipeline(replay.engine_config(config), device=dev,
+                    use_clahe=config["pipeline"]["use_clahe"])
+    feed, rows, counts = replay.Feed(s), [], []
+    while not feed.done() and len(rows) < n_rounds:
+        feed.step(pipe)
+        for row in pipe.est.stats[len(rows):]:
+            rows.append(row)
+            counts.append(lm.graph_counts())
+    assert len(rows) == n_rounds, "the drive ended first"
+    cfg = pipe.est.cfg
+    warm_nodes = max(cfg.warmup_min_preint, int(cfg.initlength))
+    return rows, counts, [r["n_nodes"] - 1 >= warm_nodes for r in rows]
+
+
+@pytest.mark.cuda
+def test_estimator_rounds_replay_from_graphs(monkeypatch):
+    """A full-width replay on the card: after the first round every round
+    replays its chains (the initialization solves and the normal rounds
+    share one key), and the rounds' iterations, iterations run and culls
+    are those of the same replay with every chain run eagerly."""
+    dev = _device()
+    lm.reset_graphs()
+    rows, counts, normal = _replay_rounds(dev, 14)
+    assert sum(normal) >= 3 and not all(normal)
+    for before, after in zip(counts, counts[1:]):
+        assert after["eager"] == before["eager"] and after["replayed"] > before["replayed"]
+    assert counts[-1]["captured"] == 5
+    monkeypatch.setattr(lm._GRAPHS, "runner", lambda state, device: graphs.Eager(
+        state, lm._GRAPHS.counts))
+    eager_rows, _, _ = _replay_rounds(dev, 14)
+    keys = ("iterations", "iters_run", "culled")
+    assert [[r[k] for k in keys] for r in rows] == [[r[k] for k in keys] for r in eager_rows]
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 import os
 
@@ -440,3 +441,19 @@ def test_lm_run_rejects_the_steps_of_a_failed_factor(tiny):
     assert torch.isfinite(st.cost0) and torch.equal(st.cost1, st.cost0)
     assert all(torch.equal(a, b) for a, b in zip(out.nodes, win.nodes))
     assert torch.equal(out.lm_invdepth, win.lm_invdepth)
+
+
+@pytest.mark.parametrize("do_cull", [True, False])
+def test_optimize_takes_no_graph_on_the_cpu(tiny, do_cull):
+    """On the CPU every chain of the round runs eagerly, the second call of
+    the same key too: the init, each iteration run, the cull and the
+    second phase's init are one chain each, and nothing is captured."""
+    win, prior, cfg, params = port(tiny)
+    tlm.reset_graphs()
+    outs = [tlm.optimize(win, prior, cfg, params, iters=20, do_cull=do_cull) for _ in range(2)]
+    s1, s2, _ = outs[0][1]
+    per_call = (1 + s1.iters_run + 2 + s2.iters_run) if do_cull else 1 + s1.iters_run
+    assert tlm.graph_counts() == dict(captured=0, replayed=0, eager=2 * per_call)
+    assert all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(outs[0][0]),
+                                                  pytree.tree_leaves(outs[1][0])))
+    assert isinstance(s1.lam, float) and isinstance(s1.accepted, int)
