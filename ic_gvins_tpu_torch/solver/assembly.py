@@ -33,7 +33,7 @@ from ..factors.residuals import (
 )
 from ..ins.preintegration import preint_residual, preint_residual_jac, sqrt_information
 from ..ins.preintegration_odo import OdoPreintData, preint_odo_residual, preint_odo_residual_jac
-from ..parallel import psum, psum_packed, psum_rank0
+from ..mesh import psum, psum_packed, psum_rank0
 from .window import EXT_DOF, NODE_DOF, Prior, SolverConfig, Window, state_boxminus
 
 SODO = 7  # the odometer scale's index in the extrinsic block

@@ -13,9 +13,9 @@ captured the second, so one-off shapes pay no capture. Strides are not
 part of the key: ``copy_`` into the static buffers takes any layout.
 Elsewhere every chain runs eagerly.
 
-Each user keeps its own ``Graphs``: its keys, plans and counts
-(``solver/lm.py`` for the single window, ``parallel/multi_seq.py`` for
-the batch).
+There is one set of chains, ``solver/lm.py``'s, with two users that keep
+their own ``Graphs`` (keys, plans and counts): ``solver/lm.py`` for the
+single window and ``parallel/multi_seq.py`` for the batch.
 """
 
 import torch

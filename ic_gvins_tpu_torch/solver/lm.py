@@ -11,7 +11,8 @@ The JAX ``lax.while_loop`` is a Python loop over chains
 stop flag) on the device; the host reads the stop flag once per
 iteration. On a CUDA device the chains are replayed from CUDA graphs once
 a window's shapes come again; on the CPU, and landmark-sharded, they run
-eagerly.
+eagerly. ``parallel/multi_seq.optimize_batch`` runs the same chains over a
+batch of windows, each window under the same rule.
 """
 
 from typing import NamedTuple
@@ -20,7 +21,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..data.types import IntegrationParams
-from ..parallel import pmax, psum
+from ..mesh import pmax, psum
 from . import graphs
 from .assembly import (
     RobustFlags,
@@ -88,29 +89,40 @@ def take_vars(win_new: Window, win: Window, accept) -> Window:
 # ---------------------------------------------------------------------------
 # The loop as chains (``solver/graphs.py``): pure functions of the state (a
 # dict of the inputs ``window``, ``prior``, ``cfg``, ``params`` and the
-# loop's 0-dim tensors) that return the entries they change. Every decision
-# is made in float64 on the values the host would read, so a chain's
-# damping, accept / reject and stop flags are the host loop's bit for bit.
+# loop's tensors) that return the entries they change. The loop's tensors
+# are 0-dim for one window, and [B] for a batch (``batched``: each leaf of
+# the window and the prior has a leading batch axis, and the per-window
+# calls run under ``torch.func.vmap``). The rule is elementwise, so each
+# member of a batch makes its own window's decisions. Every decision is
+# made in float64 on the values the host would read, so a chain's damping,
+# accept / reject and stop flags are the host loop's bit for bit.
 
 
-def _lm_init(flags: RobustFlags, lam0: float, mesh):
+def _each(fn, batched: bool):
+    """``fn`` on one window, or on each window of a batch."""
+    return torch.func.vmap(fn) if batched else fn
+
+
+def _lm_init(flags: RobustFlags, lam0: float, mesh, batched: bool):
     """The phase's starting cost and loop state."""
     def chain(s):
-        cost = robust_cost(s["window"], s["prior"], s["cfg"], s["params"], flags, mesh=mesh)
-        zero = lambda dtype: torch.zeros((), dtype=dtype, device=cost.device)  # noqa: E731
+        cost = _each(lambda w, p: robust_cost(w, p, s["cfg"], s["params"], flags, mesh=mesh),
+                     batched)(s["window"], s["prior"])
+        zero = lambda dtype: torch.zeros(cost.shape, dtype=dtype, device=cost.device)  # noqa: E731
         return dict(cost0=cost, cost=cost,
-                    lam=torch.full((), lam0, dtype=torch.float64, device=cost.device),
+                    lam=torch.full(cost.shape, lam0, dtype=torch.float64, device=cost.device),
                     naccept=zero(torch.int64), it=zero(torch.int64), done=zero(torch.bool))
     return chain
 
 
-def _lm_iteration(flags: RobustFlags, mesh):
+def _lm_iteration(flags: RobustFlags, mesh, batched: bool):
     """One LM iteration through the stop flags; after ``done`` it changes
-    nothing."""
+    nothing. ``all_done`` is the flag the host reads."""
     def chain(s):
         window, cost, lam, done = s["window"], s["cost"], s["lam"], s["done"]
-        win_new, cost_new, dx_max = lm_step(window, s["prior"], s["cfg"], s["params"], flags,
-                                            lam, mesh=mesh)
+        step = _each(lambda w, p, lam: lm_step(w, p, s["cfg"], s["params"], flags, lam,
+                                               mesh=mesh), batched)
+        win_new, cost_new, dx_max = step(window, s["prior"], lam)
         c, c_new = cost.double(), cost_new.double()
         active = ~done
         accept = active & (c_new < c)
@@ -123,13 +135,13 @@ def _lm_iteration(flags: RobustFlags, mesh):
         return dict(window=take_vars(win_new, window, accept),
                     cost=torch.where(accept, cost_new, cost), lam=lam,
                     naccept=s["naccept"] + accept.to(torch.int64),
-                    it=s["it"] + active.to(torch.int64), done=done)
+                    it=s["it"] + active.to(torch.int64), done=done, all_done=done.all())
     return chain
 
 
-def _cull(mesh):
+def _cull(mesh, batched: bool):
     def chain(s):
-        window, n_culled = chi2_cull(s["window"], s["cfg"], mesh=mesh)
+        window, n_culled = _each(lambda w: chi2_cull(w, s["cfg"], mesh=mesh), batched)(s["window"])
         return dict(window=window, n_culled=n_culled)
     return chain
 
@@ -148,26 +160,43 @@ def reset_graphs():
     _GRAPHS.reset()
 
 
-def _runner(window: Window, prior: Prior, cfg: SolverConfig, params: IntegrationParams, mesh):
-    """The run of a window's chains. The landmark-sharded loop runs
-    eagerly: its collectives decide on values from every rank."""
+def runner(window: Window, prior: Prior, cfg: SolverConfig, params: IntegrationParams,
+           mesh=None, cache: graphs.Graphs = _GRAPHS):
+    """The run of a window's chains, or a batch's, with ``cache``'s graphs
+    and counts. The landmark-sharded loop runs eagerly: its collectives
+    decide on values from every rank."""
     state = dict(window=window, prior=prior, cfg=cfg, params=params)
     if mesh is not None:
-        return graphs.Eager(state, _GRAPHS.counts)
-    return _GRAPHS.runner(state, window.nodes.p.device)
+        return graphs.Eager(state, cache.counts)
+    return cache.runner(state, window.nodes.p.device)
 
 
-def _lm_phase(run, flags: RobustFlags, iters: int, lam0: float = 1e-4, mesh=None) -> LMStats:
-    """One LM run over ``run``'s window: ``iters`` iterations at most, the
-    host reading the stop flag after each and the statistics once."""
-    run.run(("init", flags, lam0), _lm_init(flags, lam0, mesh))
+def _lm_phase(run, flags: RobustFlags, iters: int, lam0: float = 1e-4, mesh=None,
+              batched: bool = False):
+    """One LM run over ``run``'s window or batch: ``iters`` iterations at
+    most, the host reading the stop flag after each. Returns (cost0, cost1,
+    lam, accepted, iters_run) as device tensors, 0-dim or [B]."""
+    run.run(("init", flags, lam0), _lm_init(flags, lam0, mesh, batched))
     for _ in range(iters):
-        run.run(("iteration", flags), _lm_iteration(flags, mesh))
-        if bool(run.state["done"]):  # one host read per iteration: the early exit
+        run.run(("iteration", flags), _lm_iteration(flags, mesh, batched))
+        if bool(run.state["all_done"]):  # one host read per iteration: the early exit
             break
-    cost0, cost1 = run.take("cost0", "cost")
-    lam, naccept, it = torch.stack([run.state["lam"], run.state["naccept"].double(),
-                                    run.state["it"].double()]).tolist()
+    return run.take("cost0", "cost", "lam", "naccept", "it")
+
+
+def two_phases(run, iters: int, mesh=None, batched: bool = False):
+    """Phase 1 with both robust kernels, the chi2 gates, phase 2 without
+    the GNSS kernel: each phase's ``_lm_phase`` statistics. The window and
+    ``n_culled`` stay in ``run``."""
+    it1, it2 = phase_iters(iters)
+    stats1 = _lm_phase(run, PHASE1_FLAGS, it1, mesh=mesh, batched=batched)
+    run.run(("cull",), _cull(mesh, batched))
+    return stats1, _lm_phase(run, PHASE2_FLAGS, it2, mesh=mesh, batched=batched)
+
+
+def _stats(cost0, cost1, lam, naccept, it) -> LMStats:
+    """A single window's phase statistics, read to the host at once."""
+    lam, naccept, it = torch.stack([lam, naccept.double(), it.double()]).tolist()
     return LMStats(cost0=cost0, cost1=cost1, lam=lam, accepted=int(naccept), iters_run=int(it))
 
 
@@ -178,8 +207,8 @@ def lm_run(window: Window, prior: Prior, cfg: SolverConfig,
     ``iters`` is the iteration budget. With a ``mesh`` the landmark sums
     run per shard, then over the shards and the ranks; every decision is
     made once, on values every rank received from one collective."""
-    run = _runner(window, prior, cfg, params, mesh)
-    stats = _lm_phase(run, flags, iters, lam0, mesh)
+    run = runner(window, prior, cfg, params, mesh)
+    stats = _stats(*_lm_phase(run, flags, iters, lam0, mesh))
     return run.take("window")[0], stats
 
 
@@ -229,16 +258,13 @@ def optimize_impl(window: Window, prior: Prior, cfg: SolverConfig,
     ``mesh`` runs it landmark-sharded on a window that holds this rank's
     landmarks (``parallel/lm_sharded.py``). Returns (window, (stats1,
     stats2, n_culled))."""
-    run = _runner(window, prior, cfg, params, mesh)
+    run = runner(window, prior, cfg, params, mesh)
     if not do_cull:
-        stats = _lm_phase(run, PHASE1_FLAGS, iters, mesh=mesh)
+        stats = _stats(*_lm_phase(run, PHASE1_FLAGS, iters, mesh=mesh))
         return run.take("window")[0], (stats, stats, 0)
-    it1, it2 = phase_iters(iters)
-    stats1 = _lm_phase(run, PHASE1_FLAGS, it1, mesh=mesh)
-    run.run(("cull",), _cull(mesh))
-    stats2 = _lm_phase(run, PHASE2_FLAGS, it2, mesh=mesh)
+    stats1, stats2 = two_phases(run, iters, mesh)
     window, n_culled = run.take("window", "n_culled")
-    return window, (stats1, stats2, n_culled)
+    return window, (_stats(*stats1), _stats(*stats2), n_culled)
 
 
 def optimize(window: Window, prior: Prior, cfg: SolverConfig,
@@ -251,9 +277,9 @@ def optimize_phase1(window: Window, prior: Prior, cfg: SolverConfig,
                     params: IntegrationParams, iters: int = 20):
     """Phase 1 alone (robust kernels, then the chi2 gates), so that the
     two phases can be timed apart. Returns (window, stats1, n_culled)."""
-    run = _runner(window, prior, cfg, params, None)
-    stats1 = _lm_phase(run, PHASE1_FLAGS, phase_iters(iters)[0])
-    run.run(("cull",), _cull(None))
+    run = runner(window, prior, cfg, params)
+    stats1 = _stats(*_lm_phase(run, PHASE1_FLAGS, phase_iters(iters)[0]))
+    run.run(("cull",), _cull(None, False))
     window, n_culled = run.take("window", "n_culled")
     return window, stats1, n_culled
 

@@ -26,7 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
-from ic_gvins_tpu_torch.convert import to_torch, unflatten  # noqa: E402
+from ic_gvins_tpu_torch.convert import cast, to_torch, unflatten  # noqa: E402
 from ic_gvins_tpu_torch.data.types import IntegrationParams, NavState  # noqa: E402
 from ic_gvins_tpu_torch.ins.preintegration import PreintData  # noqa: E402
 from ic_gvins_tpu_torch.parallel import Mesh, ba_nodes, lm_sharded, multi_seq, pmax, psum, schur  # noqa: E402
@@ -125,6 +125,29 @@ def test_batch_members_stop_on_their_own(fx):
     assert len(set(iters.tolist())) > 1 and int(ncull.max()) > 0
     for k in ("p", "v", "q"):
         assert_rel(getattr(out.nodes, k), ref["window"]["nodes"][k], ITERATIVE, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+def test_batch_members_follow_their_own_round(fx, dtype):
+    """The three 6 x 24 windows cast to ``dtype``: each member of the batch
+    makes its own ``lm.optimize``'s decisions (the same culls, iterations
+    run and accepted steps), under the one rule both run, and lands where
+    that round does: to 1e-8 m in float64, and in float32 to 1e-3 m, since
+    the batched kernels round otherwise than the single window's and 8
+    iterations from the perturbed starts leave up to 8.9e-4 m between
+    them."""
+    wins, prs, cfg, params = _batch6(fx)
+    wins, prs = [cast(w, dtype) for w in wins], [cast(p, dtype) for p in prs]
+    cfg, params = cast(cfg, dtype), cast(params, dtype)
+    out, (_, _, ncull, iters, acc) = multi_seq.optimize_batch(
+        multi_seq.stack_windows(wins), multi_seq.stack_priors(prs), cfg, params, iters=8)
+    assert out.nodes.p.dtype == dtype
+    atol = 1e-8 if dtype == torch.float64 else 1e-3
+    for i in range(3):
+        w, (s1, s2, nc) = tlm.optimize(wins[i], prs[i], cfg, params, iters=8)
+        assert (int(ncull[i]), int(iters[i]), int(acc[i])) == (
+            int(nc), s1.iters_run + s2.iters_run, s1.accepted + s2.accepted)
+        np.testing.assert_allclose(out.nodes.p[i].numpy(), w.nodes.p.numpy(), rtol=0, atol=atol)
 
 
 def test_optimize_sharded_matches_optimize_and_jax(fx):

@@ -269,6 +269,22 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_solver_imports_no_parallel_module():
+    """The packages import in one direction: importing the LM loop (and
+    with it the assembly and the collectives of ``mesh.py``) loads no
+    module of ``parallel/``."""
+    code = (
+        "import sys\n"
+        "import ic_gvins_tpu_torch.solver.lm\n"
+        "assert 'ic_gvins_tpu_torch.mesh' in sys.modules\n"
+        "bad = [m for m in sys.modules if m.startswith('ic_gvins_tpu_torch.parallel')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_cpu_tensors_never_reach_cuda(monkeypatch):
     """On the CPU the KLT wrapper must not even load the kernel library."""
     from ic_gvins_tpu_torch.vision import klt_cuda

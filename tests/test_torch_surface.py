@@ -69,8 +69,8 @@ FLAG_RENAMES = {
 }
 # the JAX package's other scripts: what covers each, or why nothing does
 SCRIPTS_NOT_PORTED = {
-    "bench.py": "the benchmark's: its port writes BENCHMARK.json, a benchmark change's work "
-                "(ROADMAP Queue 1 item 1), not the port's",
+    "bench.py": "the benchmark's: the port's benchmark is gvbench/, which BENCHMARK.json "
+                "declares (PR 11), not a port of this script",
     "tools/bench_klt.py": "the TPU kernel's timing; the port's kernel is timed by "
                           "tools/bench_torch_klt.py and chip_smoke.py",
     "tools/bench_optimize.py": "the benchmark covers it (ROADMAP, Do not port)",
