@@ -1216,6 +1216,31 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def imu_case(n, lead, dtype, dev, seed=0):
+    """(params, state0, imu) of a preintegration: ``n`` samples at 200 Hz
+    of a rotating, accelerating body from random start states with biases,
+    under the leading axes ``lead``, with the Earth terms on."""
+    import torch
+    from ic_gvins_tpu_torch.data.types import ImuSeq, IntegrationParams, NavState
+
+    g, lead = np.random.default_rng(seed), tuple(lead)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    params = IntegrationParams(gyr_arw=t(0.003), acc_vrw=t(0.03), gyr_bias_std=t(1e-5),
+                               acc_bias_std=t(1e-3), corr_time=t(3600.0),
+                               gravity=t([0.0, 0.0, 9.8]), iewn=t([5e-5, 0.0, -4e-5]))
+    sh = lead + (n,)
+    dt = np.full(sh, 0.005)
+    imu = ImuSeq(time=t(np.cumsum(dt, -1)), dt=t(dt),
+                 dtheta=t(0.005 * g.normal(0, 0.3, sh + (3,))),
+                 dvel=t(0.005 * (g.normal(0, 1, sh + (3,)) + [0.0, 0.0, -9.8])))
+    q = g.normal(size=lead + (4,))
+    state0 = NavState(time=t(g.uniform(0, 100, lead)), p=t(g.normal(0, 50, lead + (3,))),
+                      q=t(q / np.linalg.norm(q, axis=-1, keepdims=True)),
+                      v=t(g.normal(0, 3, lead + (3,))), bg=t(g.normal(0, 1e-4, lead + (3,))),
+                      ba=t(g.normal(0, 1e-2, lead + (3,))))
+    return params, state0, imu
+
+
 def parallel_round(dev):
     """Phase 9's batch: the round's 24 x 192 window under BATCH
     perturbations (``perturb_round``) on ``dev``, and the shared prior,

@@ -5,6 +5,11 @@ vanishes when ``iewn == 0``. Every function batches over leading axes, so
 all intervals of a window integrate together, and the samples of an
 interval are processed together too (prefix scans in log2(n) rounds).
 
+``preintegrate`` pads the samples with zero samples to a power of two, at
+least ``_MIN_SAMPLES``, so that a drive's intervals share a few shapes; on
+a CUDA device each shape's work is captured once as a CUDA graph and
+replayed (``solver/graphs.py``).
+
 Error-state ordering (15): [dp 0:3, dv 3:6, dtheta 6:9, dbg 9:12, dba 12:15],
 noise ordering (12): [gyro white, accel white, gyro bias RW, accel bias RW].
 """
@@ -13,11 +18,15 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..common import rotation as rot
 from ..common.rotation import mv
 from ..data.types import ImuSeq, IntegrationParams, NavState
+from ..solver import graphs
 from .mechanization import compensate_bias, coning_sculling
+
+_MIN_SAMPLES = 64  # the smallest padded sample count
 
 
 class PreintData(NamedTuple):
@@ -205,6 +214,44 @@ def _interval_length(imu: ImuSeq):
     return torch.as_tensor(t, device=imu.dt.device)
 
 
+_GRAPHS = graphs.Graphs()
+
+
+def graph_counts() -> dict:
+    """This process's preintegrations captured, replayed from a graph and
+    run eagerly (one call is one chain)."""
+    return _GRAPHS.graph_counts()
+
+
+def reset_graphs():
+    """Forget every key and captured graph, and zero ``graph_counts``."""
+    _GRAPHS.reset()
+
+
+def _padded(imu: ImuSeq) -> ImuSeq:
+    """The samples padded with zero samples to a power of two, at least
+    ``_MIN_SAMPLES`` (the stamps are not integrated and are left out)."""
+    n = imu.dt.shape[-1]
+    pad = max(_MIN_SAMPLES, 1 << (n - 1).bit_length()) - n
+    return ImuSeq(time=None, dt=F.pad(imu.dt, (0, pad)),
+                  dtheta=F.pad(imu.dtheta, (0, 0, 0, pad)), dvel=F.pad(imu.dvel, (0, 0, 0, pad)))
+
+
+def _preintegrate_chain(s):
+    """The device work of ``preintegrate`` on padded samples, each per-step
+    series read at the real last step ``s["last"]``: the padded steps are
+    no-ops, but a scan's entry past the real last step is another
+    association."""
+    params, state0 = s["params"], s["state0"]
+    st = _integrate(params, state0, s["imu"])
+    phi, gt = _imu_blocks(params, st, 15, 12)
+    J, P = _propagate(phi, gt, noise_psd(params, state0.p.dtype), st.dt1)
+    last = lambda x: x.index_select(-2, s["last"]).squeeze(-2)  # noqa: E731
+    return dict(dp=last(st.dp_all), dv=last(st.dv_all), dq=last(st.dq_all), jac=J, cov=P,
+                sum_dt_pn=torch.sum(st.dt1 * st.p_all, -2), p=last(st.p_all),
+                q=last(st.q_all), v=last(st.v_all))
+
+
 def preintegrate(
     params: IntegrationParams, state0: NavState, imu: ImuSeq
 ) -> PreintData:
@@ -221,20 +268,22 @@ def preintegrate(
     maps, positions and deltas cumulative sums, each in log2(n) batched
     rounds; the Jacobian and covariance compose in the JAX package's
     pairwise tree. Only the association order of the sums and products
-    differs from a sequential loop.
+    differs from a sequential loop. The samples are padded (``_padded``)
+    and the work runs as one chain, from a CUDA graph on the card; the
+    result holds fresh tensors, never the graph's buffers.
     """
-    st = _integrate(params, state0, imu)
-    phi, gt = _imu_blocks(params, st, 15, 12)
-    J, P = _propagate(phi, gt, noise_psd(params, state0.p.dtype), st.dt1)
-
-    last = lambda x: x[..., -1, :]  # noqa: E731
-    t_acc = _interval_length(imu)
-    end_state = NavState(time=state0.time + t_acc, p=last(st.p_all), q=last(st.q_all),
-                         v=last(st.v_all), bg=state0.bg, ba=state0.ba)
+    dev = state0.p.device
+    t_acc = _interval_length(imu)  # on the host, before the chain is queued
+    last = torch.full((1,), imu.dt.shape[-1] - 2, dtype=torch.long, device=dev)
+    run = _GRAPHS.runner(dict(params=params, state0=state0._replace(time=None),
+                              imu=_padded(imu), last=last), dev)
+    run.run(("preintegrate",), _preintegrate_chain)
+    dp, dv, dq, J, P, sum_dt_pn, p, q, v = run.take(
+        "dp", "dv", "dq", "jac", "cov", "sum_dt_pn", "p", "q", "v")
+    end_state = NavState(time=state0.time + t_acc, p=p, q=q, v=v, bg=state0.bg, ba=state0.ba)
     return PreintData(
-        dp=last(st.dp_all), dv=last(st.dv_all), dq=last(st.dq_all), jac=J, cov=P, dt=t_acc,
-        sum_dt_pn=torch.sum(st.dt1 * st.p_all, -2), bg_ref=state0.bg, ba_ref=state0.ba,
-        end_state=end_state,
+        dp=dp, dv=dv, dq=dq, jac=J, cov=P, dt=t_acc, sum_dt_pn=sum_dt_pn,
+        bg_ref=state0.bg, ba_ref=state0.ba, end_state=end_state,
     )
 
 

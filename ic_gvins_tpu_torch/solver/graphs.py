@@ -1,4 +1,5 @@
-"""LM loops replayed from CUDA graphs (``solver/graphs.py``).
+"""LM loops and the IMU preintegration replayed from CUDA graphs
+(``solver/graphs.py``).
 
 A loop is written as chains: pure functions of a state dict (the inputs
 and the loop's device tensors) that return the entries they change. A run
@@ -13,9 +14,10 @@ captured the second, so one-off shapes pay no capture. Strides are not
 part of the key: ``copy_`` into the static buffers takes any layout.
 Elsewhere every chain runs eagerly.
 
-There is one set of chains, ``solver/lm.py``'s, with two users that keep
-their own ``Graphs`` (keys, plans and counts): ``solver/lm.py`` for the
-single window and ``parallel/multi_seq.py`` for the batch.
+There are two sets of chains, each user keeping its own ``Graphs`` (keys,
+plans and counts): ``solver/lm.py``'s LM loop, run by ``solver/lm.py`` for
+the single window and by ``parallel/multi_seq.py`` for the batch, and
+``ins/preintegration.py``'s one-chain preintegration.
 """
 
 import torch

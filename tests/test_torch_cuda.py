@@ -1,7 +1,8 @@
 """PyTorch port on the card: the Hopper KLT kernel against its plain
 PyTorch version, the solver's fixed-order sum, ``optimize_batch`` and the
-single window's ``lm.optimize`` replayed from CUDA graphs against their
-eager runs, the estimator's rounds replayed, and a full-width
+single window's ``lm.optimize`` and the IMU preintegration replayed from
+CUDA graphs against their eager runs, the estimator's rounds and
+preintegrations replayed, and a full-width
 ``Pipeline`` replay clearing the landmark slots that die with a
 marginalized anchor. Imports neither jax nor
 the JAX package, so it also runs on a machine without them:
@@ -20,6 +21,7 @@ import torch.utils._pytree as pytree
 
 import chip_smoke
 from ic_gvins_tpu_torch.convert import cast
+from ic_gvins_tpu_torch.ins import preintegration as tpre
 from ic_gvins_tpu_torch.parallel import multi_seq
 from ic_gvins_tpu_torch.solver import graphs, lm
 from ic_gvins_tpu_torch.solver.assembly import index_sum_
@@ -303,11 +305,39 @@ def test_optimize_graph_refills_its_buffers():
     assert _same(out, kept)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_preintegrate_graph_equals_eager(dtype, monkeypatch):
+    """Intervals of each padded length (64, 128, 256 and 512 samples) and
+    a batch of three through ``preintegrate``, twice: a key's first call
+    runs eagerly, its second captures, every later one replays; each call
+    gives the same call run eagerly at the same padded shape bit for bit,
+    and a result kept from an earlier call is not changed by later ones
+    (each is a copy of the graph's buffers)."""
+    dev = _device()
+    shapes = [(57, ()), (40, ()), (65, ()), (100, ()), (200, ()), (150, ()), (512, ()),
+              (400, ()), (57, (3,)), (33, (3,))]
+    cases = [chip_smoke.imu_case(n, lead, dtype, dev, seed)
+             for seed, (n, lead) in enumerate(shapes)]
+    with monkeypatch.context() as m:
+        m.setattr(tpre._GRAPHS, "runner", lambda state, device: graphs.Eager(
+            state, tpre._GRAPHS.counts))
+        eager = [tpre.preintegrate(*c) for c in cases]
+    tpre.reset_graphs()
+    first = [tpre.preintegrate(*c) for c in cases]
+    assert tpre.graph_counts() == dict(captured=5, replayed=5, eager=5)
+    kept = pytree.tree_map(torch.clone, first)
+    again = [tpre.preintegrate(*c) for c in cases]
+    assert tpre.graph_counts() == dict(captured=5, replayed=15, eager=5)
+    assert all(_same(a, e) and _same(b, e) for a, b, e in zip(first, again, eager))
+    assert _same(first, kept) and eager[0].dp.dtype == dtype
+
+
 def _replay_rounds(dev, n_rounds: int):
     """The benchmark's robot drive through the port's ``Pipeline`` until
     ``n_rounds`` estimator rounds have run: each round's statistics,
-    ``lm.graph_counts()`` after it and whether it was a normal round (not
-    the initialization solve)."""
+    ``lm.graph_counts()`` after it, whether it was a normal round (not the
+    initialization solve) and ``tpre.graph_counts()`` after it."""
     from gvbench.drivers import replay
     from gvbench.gen import streams
     from ic_gvins_tpu_torch.engine.pipeline import Pipeline
@@ -320,16 +350,17 @@ def _replay_rounds(dev, n_rounds: int):
     s = streams.make_replay(config, traffic, 2**31 + 15, dev)
     pipe = Pipeline(replay.engine_config(config), device=dev,
                     use_clahe=config["pipeline"]["use_clahe"])
-    feed, rows, counts = replay.Feed(s), [], []
+    feed, rows, counts, preint = replay.Feed(s), [], [], []
     while not feed.done() and len(rows) < n_rounds:
         feed.step(pipe)
         for row in pipe.est.stats[len(rows):]:
             rows.append(row)
             counts.append(lm.graph_counts())
+            preint.append(tpre.graph_counts())
     assert len(rows) == n_rounds, "the drive ended first"
     cfg = pipe.est.cfg
     warm_nodes = max(cfg.warmup_min_preint, int(cfg.initlength))
-    return rows, counts, [r["n_nodes"] - 1 >= warm_nodes for r in rows]
+    return rows, counts, [r["n_nodes"] - 1 >= warm_nodes for r in rows], preint
 
 
 @pytest.mark.cuda
@@ -337,17 +368,26 @@ def test_estimator_rounds_replay_from_graphs(monkeypatch):
     """A full-width replay on the card: after the first round every round
     replays its chains (the initialization solves and the normal rounds
     share one key), and the rounds' iterations, iterations run and culls
-    are those of the same replay with every chain run eagerly."""
+    are those of the same replay with every chain run eagerly. The
+    preintegrations run eagerly once per padded length (at most the four
+    of 64 to 512 samples); from the first normal round on every one
+    replays its graph."""
     dev = _device()
     lm.reset_graphs()
-    rows, counts, normal = _replay_rounds(dev, 14)
+    tpre.reset_graphs()
+    rows, counts, normal, preint = _replay_rounds(dev, 14)
     assert sum(normal) >= 3 and not all(normal)
     for before, after in zip(counts, counts[1:]):
         assert after["eager"] == before["eager"] and after["replayed"] > before["replayed"]
     assert counts[-1]["captured"] == 5
+    first = normal.index(True)
+    assert preint[-1]["eager"] == preint[first - 1]["eager"] <= 4
+    assert preint[-1]["captured"] <= preint[-1]["eager"]
+    for before, after, is_normal in zip(preint, preint[1:], normal[1:]):
+        assert not is_normal or after["replayed"] > before["replayed"]
     monkeypatch.setattr(lm._GRAPHS, "runner", lambda state, device: graphs.Eager(
         state, lm._GRAPHS.counts))
-    eager_rows, _, _ = _replay_rounds(dev, 14)
+    eager_rows, _, _, _ = _replay_rounds(dev, 14)
     keys = ("iterations", "iters_run", "culled")
     assert [[r[k] for k in keys] for r in rows] == [[r[k] for k in keys] for r in eager_rows]
 

@@ -22,6 +22,7 @@ import torch.utils._pytree as pytree
 
 import os
 
+import chip_smoke
 from ic_gvins_tpu.common import rotation as jrot
 from ic_gvins_tpu.factors import marginalization as jmarg
 from ic_gvins_tpu.ins import mechanization as jmech
@@ -196,6 +197,35 @@ def test_preintegrate_matches_jax(preint_case, field):
     same products in another association order."""
     _, _, _, want, _, got = preint_case
     assert_rel(getattr(got, field), getattr(want, field), CLOSED, field)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lead", [(), (3,)])
+@pytest.mark.parametrize("n", [2, 57, 64, 65, 300, 512])
+def test_preintegrate_padded_equals_unpadded(n, lead, dtype):
+    """``preintegrate`` pads the samples with zero samples to a power of
+    two (at least 64) and reads each per-step series at the real last step: it gives
+    the unpadded integration (the recursions run on the samples as they
+    came) within 1e-12 in float64 and a few ulps in float32 (a sum over
+    more terms), and the interval's length and end time bit for bit. On
+    the CPU the call runs eagerly and captures nothing."""
+    params, state0, imu = chip_smoke.imu_case(n, lead, dtype, "cpu")
+    tpre.reset_graphs()
+    got = tpre.preintegrate(params, state0, imu)
+    assert tpre.graph_counts() == dict(captured=0, replayed=0, eager=1)
+    st = tpre._integrate(params, state0, imu)
+    phi, gt = tpre._imu_blocks(params, st, 15, 12)
+    J, P = tpre._propagate(phi, gt, tpre.noise_psd(params, dtype), st.dt1)
+    want = dict(dp=st.dp_all, dv=st.dv_all, dq=st.dq_all, p=st.p_all, q=st.q_all, v=st.v_all)
+    want = {k: v[..., -1, :] for k, v in want.items()}
+    want.update(jac=J, cov=P, sum_dt_pn=torch.sum(st.dt1 * st.p_all, -2))
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    for k, w in want.items():
+        g = getattr(got.end_state if k in ("p", "q", "v") else got, k)
+        assert g.dtype == dtype and g.shape == w.shape, k
+        assert_rel(g, w.numpy(), tol, k)
+    t_acc = torch.as_tensor(np.cumsum(imu.dt[..., 1:].numpy(), -1)[..., -1])
+    assert torch.equal(got.dt, t_acc) and torch.equal(got.end_state.time, state0.time + t_acc)
 
 
 def test_preint_end_state_matches_jax(preint_case):
