@@ -335,6 +335,11 @@ class Estimator:
         self.device = dev = resolve_device(device)
         self.dtype = dtype
         self._np_cache: dict = {}
+        # the intake's counts (cumulative): frames, keyframes and tracks
+        # fed; landmark slots taken, and new tracks a keyframe dropped for
+        # want of a free slot; window tensors read to the host by _host
+        self.counters = {"frames": 0, "keyframes": 0, "tracks": 0, "slots_taken": 0,
+                         "slot_drops": 0, "host_reads": 0}
         kw = dict(dtype=dtype, device=dev)
         t = lambda x: torch.tensor(x, **kw)  # noqa: E731
         m = cfg.imumodel
@@ -433,6 +438,10 @@ class Estimator:
         # host clock: "preintegrate", "optimize", "marginalize"
         self.stage_ms: dict[str, list[float]] = {
             "preintegrate": [], "optimize": [], "marginalize": []}
+        self._staged_ms = 0.0  # the sum of every stage_ms entry
+        # host wall ms of each add_frame_observations call, less the
+        # stage_ms stages it ran
+        self.feed_ms: list[float] = []
         # observations and landmark slots that died with a marginalized
         # anchor and were cleared before the slots were freed (cumulative)
         self._dead_cleared = {"observations": 0, "slots": 0}
@@ -452,9 +461,19 @@ class Estimator:
         ``dtype`` names another."""
         return torch.as_tensor(np.asarray(x), dtype=dtype or self.dtype, device=self.device)
 
+    def _host(self, x) -> np.ndarray:
+        """``_host``, counting the tensors read (``counters["host_reads"]``)."""
+        if torch.is_tensor(x):
+            self.counters["host_reads"] += 1
+        return _host(x)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _stage_done(self, stage, ms):
+        self.stage_ms[stage].append(ms)
+        self._staged_ms += ms
 
     @contextmanager
     def _timed(self, stage):
@@ -462,15 +481,15 @@ class Estimator:
         t0 = _time.perf_counter()
         yield
         self._sync()
-        self.stage_ms[stage].append((_time.perf_counter() - t0) * 1e3)
+        self._stage_done(stage, (_time.perf_counter() - t0) * 1e3)
 
     def _imu_slice(self, t0, t1) -> ImuSeq:
         return ImuSeq(*(self._dev(x) for x in self.imu.slice_between_np(t0, t1)))
 
     def _set_params(self, **kw):
         self.params = self.params._replace(**kw)
-        self._gravity = _host(self.params.gravity).astype(np.float64)
-        self._iewn = _host(self.params.iewn).astype(np.float64)
+        self._gravity = self._host(self.params.gravity).astype(np.float64)
+        self._iewn = self._host(self.params.iewn).astype(np.float64)
 
     # ------------------------------------------------------------------
     # ingest
@@ -530,7 +549,7 @@ class Estimator:
         """Per-IMU-sample odometer displacement increments dt * v(t)."""
         if not self.odo_t:
             return torch.zeros_like(imu.dt)
-        t, dt = _host(imu.time), _host(imu.dt)
+        t, dt = self._host(imu.time), self._host(imu.dt)
         return self._dev(np.interp(t, np.asarray(self.odo_t), np.asarray(self.odo_v)) * dt)
 
     def set_mesh(self, mesh):
@@ -556,7 +575,7 @@ class Estimator:
         package's layout (its keys; window and prior leaves as numpy in its
         flatten order), so that either package resumes the other's
         checkpoints."""
-        to_np = lambda xs: [_host(x) for x in xs]  # noqa: E731
+        to_np = lambda xs: [self._host(x) for x in xs]  # noqa: E731
         state = dict(
             window=to_np(_leaves(self.window)),
             prior=to_np(_leaves(self.prior)),
@@ -567,7 +586,7 @@ class Estimator:
             lm_slot=self.lm_slot,
             free_slots=self.free_slots,
             engine_state=self.state,
-            iewn=_host(self.params.iewn),
+            iewn=self._host(self.params.iewn),
             last_node_state=(to_np(self.last_node_state)
                              if self.last_node_state is not None else None),
             imu=self.imu.arrays(),
@@ -580,7 +599,7 @@ class Estimator:
             imu_repaired=self.imu_repaired,
             dropped_gnss=self.dropped_gnss,
             origin_blh=self.origin_blh,
-            gravity=_host(self.params.gravity),
+            gravity=self._host(self.params.gravity),
             n_recenters=self.n_recenters,
             gins_chi2=list(self._gins_chi2),
             align_bg=self._align_bg,
@@ -698,7 +717,7 @@ class Estimator:
             self._dev(all_dth[sel]), self._dev(all_dv[sel]), rate,
             cfg.zupt_gyr_threshold, cfg.zupt_acc_threshold,
         )
-        mean = _host(mean)
+        mean = self._host(mean)
         g = float(self._gravity[2])
 
         vel_gnss = (p1 - p0) / (t1 - t0)
@@ -739,7 +758,7 @@ class Estimator:
         bg = self._align_bg if self._align_bg is not None else np.zeros(3)
 
         q = rot.euler_to_quat(self._dev([roll, pitch, yaw]))
-        r_bn = _host(rot.quat_to_matrix(q))
+        r_bn = self._host(rot.quat_to_matrix(q))
         p_node = p1 - r_bn @ np.asarray(cfg.antlever)
 
         state0 = NavState(time=self._dev(t1), p=self._dev(p_node), q=q,
@@ -813,7 +832,7 @@ class Estimator:
             # one device-to-host copy of the node state per round
             if self._np_state_cache[0] is not s:
                 self._np_state_cache = (s, tuple(
-                    _host(x).astype(np.float64) for x in (s.p, s.q, s.v, s.bg, s.ba)))
+                    self._host(x).astype(np.float64) for x in (s.p, s.q, s.v, s.bg, s.ba)))
             sp, sq, sv, sbg, sba = self._np_state_cache[1]
             p, q, v = _np_mechanize_series(self._gravity, self._iewn, sp, sq, sv, sbg, sba,
                                            dt_a, th_a, dv_a)
@@ -940,7 +959,16 @@ class Estimator:
     # ------------------------------------------------------------------
 
     def add_frame_observations(self, t, ids, uv, vel=None, force_kf=None):
-        """A tracked frame: landmark ids + normalized-plane observations."""
+        """A tracked frame: landmark ids + normalized-plane observations
+        (and their velocities); its host wall, less the stages it ran, goes
+        to ``feed_ms``."""
+        t0, staged = _time.perf_counter(), self._staged_ms
+        self.counters["frames"] += 1
+        self.counters["tracks"] += len(ids)
+        self._add_frame(t, ids, uv, vel, force_kf)
+        self.feed_ms.append((_time.perf_counter() - t0) * 1e3 - (self._staged_ms - staged))
+
+    def _add_frame(self, t, ids, uv, vel, force_kf):
         if self.state == INITIALIZING:
             return
         t = float(t)
@@ -983,21 +1011,24 @@ class Estimator:
         kf_kind = self._kf_kind
 
         self._add_time_node(t, is_kf=True)
+        self.counters["keyframes"] += 1
         n = self.n_nodes - 1
         w = self.window
-        obs_uv = _host(w.obs_uv).copy()
-        obs_vel = _host(w.obs_vel).copy()
-        obs_valid = _host(w.obs_valid).copy()
-        lm_ref = _host(w.lm_ref).copy()
-        lm_valid = _host(w.lm_valid).copy()
-        lm_invd = _host(w.lm_invdepth).copy()
+        obs_uv = self._host(w.obs_uv).copy()
+        obs_vel = self._host(w.obs_vel).copy()
+        obs_valid = self._host(w.obs_valid).copy()
+        lm_ref = self._host(w.lm_ref).copy()
+        lm_valid = self._host(w.lm_valid).copy()
+        lm_invd = self._host(w.lm_invdepth).copy()
 
         for fid, xy, vxy in zip(ids, uv, vel):
             slot = self.lm_slot.get(fid)
             if slot is None:
                 if not self.free_slots:
+                    self.counters["slot_drops"] += 1
                     continue
                 slot = self.free_slots.pop()
+                self.counters["slots_taken"] += 1
                 self.lm_slot[fid] = slot
                 lm_ref[slot] = n
                 # factor-eligible only once triangulated (_init_new_depths)
@@ -1067,7 +1098,7 @@ class Estimator:
         else:
             s_cur = self._mechanize_to(t)
             ext_q = self._npw("ext_q")
-            r1 = _np_quat_to_matrix(_np_quat_mul(_host(s_cur.q), ext_q))
+            r1 = _np_quat_to_matrix(_np_quat_mul(self._host(s_cur.q), ext_q))
             k_lasts = np.asarray(k_lasts)
             q_nodes = self._npw("nodes.q")[k_lasts]
             r0 = _np_quat_to_matrix(_np_quat_mul(q_nodes, ext_q[None, :]))
@@ -1093,10 +1124,10 @@ class Estimator:
         (tracking.cc:690-811, with window poses); only the real
         candidates go to the device."""
         w = self.window
-        obs_valid = _host(w.obs_valid)
-        lm_ref = _host(w.lm_ref).copy()
-        lm_valid = _host(w.lm_valid).copy()
-        lm_invd = _host(w.lm_invdepth).copy()
+        obs_valid = self._host(w.obs_valid)
+        lm_ref = self._host(w.lm_ref).copy()
+        lm_valid = self._host(w.lm_valid).copy()
+        lm_invd = self._host(w.lm_invdepth).copy()
         slots_in_use = set(self.lm_slot.values())
         cand = []
         reanchored = False
@@ -1137,7 +1168,7 @@ class Estimator:
             reproj_thresh=gate_px / self._focal, depth_scale=3.0,
             min_parallax=self.cfg.triangulate_min_parallax / self._focal,
         )
-        invd, ok = _host(invd), _host(ok)
+        invd, ok = self._host(invd), self._host(ok)
         lm_invd[cand[ok]] = invd[ok]
         lm_valid[cand[ok]] = True  # triangulated: factor-eligible
         self.lm_type[cand[ok]] = MAPPOINT_TRIANGULATED
@@ -1190,8 +1221,8 @@ class Estimator:
         s1, s2, ncull = stats
         # per-keyframe statistics (statistics.txt columns, ic_gvins.cc:964-1067)
         r_v = eval_reproj_res(self.window, self.solver_cfg)
-        m = _host(obs_mask(self.window))
-        px_err = (np.linalg.norm(_host(r_v), axis=-1)
+        m = self._host(obs_mask(self.window))
+        px_err = (np.linalg.norm(self._host(r_v), axis=-1)
                   * float(self.solver_cfg.reproj_std) * self._focal)
         errs = px_err[m]
         # extrinsic sanity gate + landmark-level culling (ic_gvins.cc:1260-1270)
@@ -1272,7 +1303,7 @@ class Estimator:
             return
         p0, q0 = self._ext_accepted
         dt = float(torch.linalg.norm(self.window.ext_p - p0))
-        dq = _host(rot.quat_mul(rot.quat_inv(q0), self.window.ext_q))
+        dq = self._host(rot.quat_mul(rot.quat_inv(q0), self.window.ext_q))
         dr = float(np.degrees(2.0 * math.atan2(np.linalg.norm(dq[1:]), abs(float(dq[0])))))
         if dt > 1.0 or dr > 5.0:
             LOGE(f"Estimated extrinsic is too large, dt={dt:.3f} m, dr={dr:.2f} deg; reverting")
@@ -1347,8 +1378,8 @@ class Estimator:
         n = self.n_nodes
         if n < 2:
             return
-        bg_ref = _host(self.window.preint.bg_ref[: n - 1])
-        ba_ref = _host(self.window.preint.ba_ref[: n - 1])
+        bg_ref = self._host(self.window.preint.bg_ref[: n - 1])
+        ba_ref = self._host(self.window.preint.ba_ref[: n - 1])
         bg_now = self._npw("nodes.bg")[: n - 1]
         ba_now = self._npw("nodes.ba")[: n - 1]
         sg = 6.0 * float(self.params.gyr_bias_std)
@@ -1428,7 +1459,7 @@ class Estimator:
         self._refresh_earth_params(self._npw("nodes.p")[0])
         self._sync()
         ms = (_time.perf_counter() - t0) * 1e3
-        self.stage_ms["marginalize"].append(ms)
+        self._stage_done("marginalize", ms)
         self._t_marg_accum += ms / 1e3
 
     def _save_fixed_mappoints(self, slots):
@@ -1453,8 +1484,8 @@ class Estimator:
     def _log_pose(self):
         s = self.last_node_state
         self.traj_times.append(float(s.time))
-        self.traj_p.append(_host(s.p).astype(np.float64) + self.origin)
-        self.traj_q.append(_host(s.q))
+        self.traj_p.append(self._host(s.p).astype(np.float64) + self.origin)
+        self.traj_q.append(self._host(s.q))
 
     def _maybe_recenter(self):
         """Shift the window so that the oldest node sits at the origin once
@@ -1512,7 +1543,7 @@ class Estimator:
             cache["_id"] = w
         if name not in cache:
             val = getattr(w.nodes, name[6:]) if name.startswith("nodes.") else getattr(w, name)
-            cache[name] = _host(val)
+            cache[name] = self._host(val)
         return cache[name]
 
     def landmark_positions(self, ids):
